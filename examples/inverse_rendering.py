@@ -1,6 +1,6 @@
 """Inverse rendering demo (BASELINE.md config 4).
 
-Perturbs sphere positions and albedos in the reference spheres.json scene,
+Perturbs a sphere position and the ground albedo in data/caustics.json,
 then recovers them from a target render by gradient descent through the
 differentiable path tracer. Writes before/target/after PNGs.
 
@@ -9,6 +9,7 @@ Usage: python examples/inverse_rendering.py [--steps 300] [--platform cpu]
 
 import argparse
 import dataclasses
+import os
 
 import numpy as np
 
@@ -17,7 +18,7 @@ def main():
     ap = argparse.ArgumentParser()
     ap.add_argument("--steps", type=int, default=300)
     ap.add_argument("--platform", default=None)
-    ap.add_argument("--out-prefix", default="/tmp/inverse")
+    ap.add_argument("--out-prefix", default="inverse")
     args = ap.parse_args()
 
     import jax
@@ -33,7 +34,10 @@ def main():
 
     w, h, spp = 96, 72, 8
     config = RenderConfig(max_depth=2)
-    scene = parser.load("/root/reference/data/spheres.json", w / h)
+    scene = parser.load(
+        os.path.join(os.path.dirname(os.path.dirname(os.path.abspath(__file__))), "data", "caustics.json"),
+        w / h,
+    )
     scene = jax.tree.map(jnp.asarray, scene)
 
     target = render_pass(scene, jax.random.PRNGKey(123), w, h, spp, config)
@@ -44,9 +48,9 @@ def main():
     # shading/shadow gradients — reliable for offsets within the feature size
     wrong = dataclasses.replace(
         scene,
-        # the big red Phong sphere: its highlight/shadow footprint carries a
-        # strong shading gradient at this resolution
-        sphere_transform=scene.sphere_transform.at[1, 0, 3].add(0.2).at[1, 2, 3].add(-0.1),
+        # the Phong sphere: its highlight/shadow footprint carries a strong
+        # shading gradient at this resolution
+        sphere_transform=scene.sphere_transform.at[2, 0, 3].add(0.2).at[2, 2, 3].add(-0.1),
         materials=dataclasses.replace(
             scene.materials, diffuse=scene.materials.diffuse.at[0, :3].set(jnp.array([0.2, 0.1, 0.3]))
         ),
@@ -61,8 +65,8 @@ def main():
     )
     for i in range(0, args.steps, 20):
         losses = inv.run(20, jax.random.fold_in(jax.random.PRNGKey(7), i))
-        dx = float(np.asarray(inv.params["sphere_transform"])[1, 0, 3]) - float(
-            np.asarray(scene.sphere_transform)[1, 0, 3]
+        dx = float(np.asarray(inv.params["sphere_transform"])[2, 0, 3]) - float(
+            np.asarray(scene.sphere_transform)[2, 0, 3]
         )
         gd = np.abs(np.asarray(inv.params["diffuse"])[0, :3] - np.asarray(scene.materials.diffuse)[0, :3]).max()
         print(f"step {i+20:4d}  loss {losses[-1]:.5f}  sphere dx err {dx:+.3f}  ground albedo err {gd:.3f}")

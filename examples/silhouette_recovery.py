@@ -22,7 +22,7 @@ def main():
     ap = argparse.ArgumentParser()
     ap.add_argument("--steps", type=int, default=60)
     ap.add_argument("--platform", default=None)
-    ap.add_argument("--out-prefix", default="/tmp/silhouette")
+    ap.add_argument("--out-prefix", default="silhouette")
     args = ap.parse_args()
 
     import jax

@@ -22,7 +22,7 @@ import numpy as np
 def build_argparser() -> argparse.ArgumentParser:
     p = argparse.ArgumentParser(
         prog="kajo",
-        description="TPU-native differentiable path tracer",
+        description="differentiable Monte-Carlo path tracer",
         add_help=False,
     )
     p.add_argument("--help", action="help", help="show this help")
@@ -32,7 +32,7 @@ def build_argparser() -> argparse.ArgumentParser:
         "-r",
         dest="renderer",
         default="jax",
-        choices=["jax", "cpu", "gl", "tpu"],
+        choices=["jax", "cpu", "gl"],
         help="renderer backend (jax; cpu/gl accepted as aliases for parity)",
     )
     p.add_argument("scene", nargs="?", default=None, help="scene JSON (default: built-in test scene)")
@@ -42,7 +42,7 @@ def build_argparser() -> argparse.ArgumentParser:
         default=0,
         metavar="N",
         help="render the N-sphere procedural field instead of a scene file "
-        "(the big-scene scaling config; exercises the streaming trace)",
+        "(the big-scene scaling config; exercises the chunked trace)",
     )
     p.add_argument(
         "--scale-jitter",
@@ -56,9 +56,9 @@ def build_argparser() -> argparse.ArgumentParser:
         "--batch",
         type=int,
         default=0,
-        help="passes per device dispatch (0 = auto: 4, or 8 for big scenes "
-        "on the fast engine; amortizes the remote runtime's per-dispatch "
-        "overhead — preview/saves update per batch)",
+        help="passes per device dispatch (0 = auto: 4 on the mega/fast "
+        "engines; amortizes per-dispatch overhead and host syncs — "
+        "preview/saves update per batch)",
     )
     p.add_argument("--passes", type=int, default=8, help="progressive passes (8; 0 = run until Ctrl-C)")
     p.add_argument("--depth", type=int, default=8, help="max path depth (8)")
@@ -95,16 +95,17 @@ def build_argparser() -> argparse.ArgumentParser:
     p.add_argument(
         "--shard-objects",
         action="store_true",
-        help="shard the SCENE over devices instead of the rays (each chip "
-        "stores and traces S/n_dev spheres; nearest hits reduced over ICI) — "
-        "for scenes too large to replicate",
+        help="shard the SCENE over devices instead of the rays (each device "
+        "stores and traces S/n_dev spheres; nearest hits reduced with "
+        "collectives) — for scenes too large to replicate",
     )
     p.add_argument("--profile", default=None, metavar="DIR", help="capture a jax profiler trace to DIR")
     p.add_argument(
         "--engine",
         default="auto",
         choices=["auto", "mega", "fast", "parity"],
-        help="auto = fastest supported (default); mega = fused Pallas megakernel; "
+        help="auto = fastest supported (default); mega = fused Pallas Triton "
+        "megakernel (CUDA GPUs); "
         "fast = regenerating wavefront; parity = fixed-shape scan "
         "(differentiable, bit-spec of the estimator)",
     )
@@ -120,12 +121,9 @@ def main(argv=None) -> int:
         jax.config.update("jax_platforms", args.platform)
     import jax
 
-    import os as _os
+    from .utils.compile_cache import enable_compile_cache
 
-    _cache = _os.environ.get("JAX_COMPILATION_CACHE_DIR", "/tmp/kajo_jax_cache")
-    _os.makedirs(_cache, exist_ok=True)
-    jax.config.update("jax_compilation_cache_dir", _cache)
-    jax.config.update("jax_persistent_cache_min_compile_time_secs", 1.0)
+    enable_compile_cache()
 
     from .models.engine import render_pass_engine, select_engine
     from .models.integrator import RenderConfig
@@ -159,9 +157,9 @@ def main(argv=None) -> int:
         regen = 0.01 if args.renderer == "gl" else 0.0
     one_light = args.one_light_nee
     if one_light is None:
-        # big-scene default: one-of-L light sampling is unbiased and ~2x
-        # faster on the streaming path (fewer shadow traces); parity configs
-        # opt out with --no-one-light-nee
+        # big-scene default: one-of-L light sampling is unbiased and traces
+        # one shadow ray per vertex instead of L; parity configs opt out
+        # with --no-one-light-nee
         one_light = args.procedural >= 10_000
         if one_light:
             print(
@@ -238,16 +236,13 @@ def main(argv=None) -> int:
     if args.profile:
         jax.profiler.start_trace(args.profile)
     n_passes = args.passes if args.passes > 0 else 1 << 30
-    # dispatch overhead dominates small passes; the megakernel AND fast
-    # engines batch several passes per device dispatch (preview still
-    # updates per batch) — measured ~1.6x on the 100k-sphere config with
-    # batch 8 (+ the lane multiplier, wavefront.LANE_MULT)
+    # the megakernel and fast engines batch several passes per device
+    # dispatch (preview still updates per batch), amortizing dispatch and
+    # the per-batch host readback
     if args.batch > 0:
         batch = args.batch
     elif engine in ("mega", "fast") and not args.shard and not args.shard_objects:
-        from .ops.geometry import STREAM_THRESHOLD
-
-        batch = 8 if (engine == "fast" and scene.num_spheres > STREAM_THRESHOLD) else 4
+        batch = 4
     else:
         batch = 1
     t0 = time.time()
@@ -305,7 +300,7 @@ def main(argv=None) -> int:
                 now = time.time()
                 elapsed = now - t0
                 rate = pass_samples / max(now - t_pass, 1e-9)
-                # per-device throughput: the TPU translation of the reference
+                # per-device throughput: the SPMD translation of the reference
                 # preview's per-thread bars (Preview.cpp:183-201) — SPMD shards
                 # are equal, so one number per device tells the same story
                 per_dev = (

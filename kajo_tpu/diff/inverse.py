@@ -28,16 +28,9 @@ import optax
 
 from ..models.integrator import RenderConfig
 from ..models.wavefront import render_pass_budget
-from ..ops.pallas import megakernel, megakernel_grad
+from ..ops.pallas import megakernel
 from ..parallel.render import render_pass_sharded
 from ..scene.types import Scene
-
-# Parameters the fused Pallas backward kernels can differentiate: material
-# colors via the PRB kernel (ops/pallas/megakernel_grad.py); sphere geometry
-# via the replay kernel (ops/pallas/megakernel_geom.py). The remaining
-# material fields (exponent/IOR/transparency) use the jax budget engine.
-MEGA_DIFF_PARAMS = frozenset({"diffuse", "specular", "emission"})
-MEGA_GEOM_PARAMS = frozenset({"sphere_transform", "sphere_radius"})
 
 # Leaves exposed to the optimizer by default (config 4: position/radius/albedo).
 DEFAULT_PARAM_SPEC = ("sphere_transform", "sphere_radius", "diffuse")
@@ -125,9 +118,8 @@ class InverseRenderer:
     mesh: Any = None
     param_spec: tuple = DEFAULT_PARAM_SPEC
     decay_steps: int = 0  # >0: cosine-decay the lr to 10% over this many steps
-    # "auto" uses the fused Pallas fwd+bwd kernels when the scene supports the
-    # megakernel, the backend is TPU, and every optimized parameter is in
-    # MEGA_DIFF_PARAMS; otherwise the differentiable jax budget engine.
+    # "auto"/"jax": reverse mode through the differentiable jax budget engine
+    # (sharded parity scan under a mesh); "mega-fwd": see param_mask below.
     engine: str = "auto"
     loss_clip: Any = None  # clamp render+target in the loss (HDR stability)
     # Add the silhouette boundary term (diff/edges.py) to the render's VJP:
@@ -141,34 +133,22 @@ class InverseRenderer:
     shadow_edges: bool = False
     n_shadow_edge: int = 4
     # engine="mega-fwd": gradients from the forward-mode megakernel — one
-    # fused primal+tangent kernel per optimized scalar per render. Beats the
-    # jax budget engine by ~an order of magnitude when few scalars are
-    # optimized (sphere position/radius — BASELINE config 4's geometry).
+    # fused primal+tangent kernel per optimized scalar per render, for when
+    # few scalars are optimized (sphere position/radius — BASELINE config
+    # 4's geometry). GPU only (or megakernel.interpret_mode() in tests).
     # ``param_mask``: optional {name: bool array} restricting which entries
     # get directions (e.g. one sphere's translation column).
     param_mask: Any = None
 
     def __post_init__(self):
         if self.engine == "auto":
-            from ..ops.pallas import megakernel_geom
-
-            spec = set(self.param_spec)
-            geom = spec & MEGA_GEOM_PARAMS
-            self.engine = (
-                "mega"
-                if (
-                    jax.default_backend() == "tpu"
-                    and self.mesh is None
-                    and megakernel_grad.supports(self.scene)
-                    and spec <= (MEGA_DIFF_PARAMS | MEGA_GEOM_PARAMS)
-                    and (not geom or megakernel_geom.supports(self.scene))
-                    # boundary terms (edge_gradients / shadow_edges) compose
-                    # with the fused kernels: the silhouette term is a
-                    # zero-primal custom_vjp added to the render (engine-
-                    # agnostic by construction), so they do NOT force the
-                    # ~1M samples/s jax budget engine anymore
-                )
-                else "jax"
+            self.engine = "jax"
+        if self.engine not in ("jax", "mega-fwd"):
+            raise ValueError(f"unknown engine {self.engine!r}: use 'auto', 'jax' or 'mega-fwd'")
+        if self.engine == "mega-fwd" and not megakernel.available():
+            raise ValueError(
+                "engine='mega-fwd' runs the Pallas Triton megakernel, which "
+                "needs a CUDA GPU; use engine='jax' here"
             )
         self.params = extract_params(self.scene, self.param_spec)
         if self.decay_steps:
@@ -187,48 +167,8 @@ class InverseRenderer:
         base_scene = jax.tree.map(jnp.asarray, self.scene)
         target = jnp.asarray(self.target)
 
-        if self.engine == "mega":
-            render = megakernel_grad.make_diff_renderer(
-                w, h, spp, cfg, geometry=bool(set(self.param_spec) & MEGA_GEOM_PARAMS)
-            )
-
-            clip = self.loss_clip
-            edge_term = None
-            if self.edge_gradients or self.shadow_edges:
-                # boundary completion at kernel speed: the zero-primal
-                # silhouette/shadow term rides on the fused render exactly as
-                # on the budget engine (its probes use render_samples)
-                from .edges import make_silhouette_term
-
-                edge_term = make_silhouette_term(
-                    w, h, cfg, self.n_edge, self.shadow_edges, self.n_shadow_edge
-                )
-
-            def loss_fn(params, key):
-                updated = apply_params(base_scene, params)
-                t = target[..., :3]
-                if edge_term is None:
-                    k1, k2 = jax.random.split(key)
-                    i1 = render(updated, k1)[..., :3]
-                    i2 = render(updated, k2)[..., :3]
-                else:
-                    k1, k2, k3 = jax.random.split(key, 3)
-                    edge = edge_term(updated, k3)[..., :3]
-                    i1 = render(updated, k1)[..., :3] + edge
-                    i2 = render(updated, k2)[..., :3] + edge
-                if clip is not None:
-                    t = jnp.clip(t, 0.0, clip)
-                    i1 = jnp.clip(i1, 0.0, clip)
-                    i2 = jnp.clip(i2, 0.0, clip)
-                return jnp.mean((i1 - t) * (i2 - t))
-
-        elif self.engine == "mega-fwd":
+        if self.engine == "mega-fwd":
             import numpy as np
-
-            from ..ops.pallas.megakernel import (
-                render_pass_megakernel_jvp,
-                scene_zero_tangent,
-            )
 
             # enumerate optimized scalars -> one tangent direction each
             dirs = []
@@ -244,7 +184,7 @@ class InverseRenderer:
                     f"mega-fwd runs one kernel per optimized scalar; {len(dirs)} "
                     "directions is too many — restrict with param_mask or use the jax engine"
                 )
-            zero_tan = scene_zero_tangent(base_scene)
+            zero_tan = megakernel.scene_zero_tangent(base_scene)
             tans = []
             for name, i in dirs:
                 pt = {
@@ -264,8 +204,12 @@ class InverseRenderer:
                     t = jnp.clip(t, 0.0, clip)
 
                 def one_dir(carry, tanscene):
-                    i1, d1 = render_pass_megakernel_jvp(updated, tanscene, k1, w, h, spp, cfg)
-                    i2, d2 = render_pass_megakernel_jvp(updated, tanscene, k2, w, h, spp, cfg)
+                    i1, d1 = megakernel.render_pass_megakernel_jvp(
+                        updated, tanscene, k1, w, h, spp, cfg
+                    )
+                    i2, d2 = megakernel.render_pass_megakernel_jvp(
+                        updated, tanscene, k2, w, h, spp, cfg
+                    )
                     i1, i2 = i1[..., :3], i2[..., :3]
                     d1, d2 = d1[..., :3], d2[..., :3]
                     if clip is not None:

@@ -1,8 +1,8 @@
 """Engine selection: pick the fastest renderer that supports the scene.
 
-  * ``mega``   — fused Pallas megakernel (ops/pallas/megakernel.py): any
-    scene (rigid or general transforms) with a VMEM-sized object set; ~20x
-    the jax wavefront on TPU.
+  * ``mega``   — fused Pallas Triton megakernel (ops/pallas/megakernel.py):
+    any scene (rigid or general transforms) up to MAX_KERNEL_OBJECTS
+    objects; CUDA GPUs only.
   * ``fast``   — regenerating jax wavefront (models/wavefront.py): any scene,
     any backend (including the chunked 100k-sphere path).
   * ``parity`` — fixed-shape scan (models/integrator.py): the estimator
@@ -20,9 +20,15 @@ from .wavefront import render_pass_fast
 
 
 def select_engine(scene: Scene, requested: str = "auto") -> str:
+    if requested == "mega" and not megakernel.available():
+        raise ValueError(
+            "engine 'mega' is a Pallas Triton kernel compiled for CUDA GPUs; "
+            f"the {jax.default_backend()!r} backend cannot run it — use "
+            "--engine fast (tests wrap calls in megakernel.interpret_mode())"
+        )
     if requested != "auto":
         return requested
-    if jax.default_backend() == "tpu" and megakernel.supports(scene):
+    if jax.default_backend() == "gpu" and megakernel.supports(scene):
         return "mega"
     return "fast"
 

@@ -82,9 +82,8 @@ class RenderConfig:
     # chosen light scaled by L — unbiased (each light's estimator keeps its
     # exact per-light MIS weight), and cuts the shadow-ray cost from L to 1
     # per vertex, the dominant trace cost in many-light big scenes. Honored
-    # by all three render engines (parity scan, fast wavefront, megakernel);
-    # the fused GRADIENT kernels (megakernel_grad/geom) raise on it. Higher
-    # per-sample variance.
+    # by all three render engines (parity scan, fast wavefront, megakernel)
+    # and the forward-mode megakernel. Higher per-sample variance.
     one_light_nee: bool = False
     # GL-backend-exact estimator (gl/SurfaceShader.cpp:31-98), honored by the
     # regenerating wavefront engines (fast/budget; `-r gl` sets it):

@@ -1,8 +1,8 @@
 """Production wavefront renderer with lane regeneration.
 
 Computes the *same estimator* as models/integrator.py (the parity-spec module;
-see its docstring for the full semantics derivation) but restructured for TPU
-throughput:
+see its docstring for the full semantics derivation) but restructured for
+accelerator throughput:
 
   * **lane regeneration** — one lane per pixel; when a path terminates the
     lane immediately starts that pixel's next stratified sample instead of
@@ -18,7 +18,8 @@ throughput:
   * **vec3 color state** — the reference's vec4 alpha channel never feeds
     back into RGB (verified against cpu/Shader.cpp), so the wavefront carries
     RGB only;
-  * rigid scenes use the MXU ray-sphere path automatically (ops/geometry.py).
+  * rigid scenes use the world-space matmul ray-sphere path automatically
+    (ops/geometry.py).
 
 `lax.while_loop` has no reverse-mode derivative, so two drivers share the
 same loop body: `render_lanes` (while_loop, exact sample counts, fastest
@@ -47,35 +48,13 @@ from ..scene.types import Scene
 
 _CAMERA_SALT = jnp.uint32(0x7FFFFFFF)
 
-# Keep the wavefront state sorted by (ray-origin Morton cell, direction
-# octant) every iteration on streaming scenes. HISTORY: introduced in round 2
-# when it won; round 4's lane multiplier + pass batching flipped the balance
-# — the tiled pixel order already hands the kernels tile-coherent lanes, so
-# the state-level argsort+gather became pure overhead: 211.8K (on) vs 288.4K
-# (off) samples/s on config 5, bit-identical images (the un-permute makes
-# reorder transparent). Round 5 found the same for the PER-CALL sorts
-# (geometry.SORT_STREAM_RAYS, now also default off — see its history note).
-# None = auto (now OFF); True/False = A/B override.
-REORDER_WAVEFRONT: bool | None = None
-_REORDER_AUTO: bool = False
-
-# Lane multiplier for streaming scenes (render_pass_fast): each pixel's
-# samples split across this many lanes (when eff_spp divides), cutting
-# while_loop iterations by the same factor. 1 = off.
-LANE_MULT: int = 4
-
-
 def _maxrgb(c):
     return jnp.max(c, axis=-1)
 
 
-def _camera_ray(prep, lane, pix, sample, seed, width, height, grid):
-    # ``pix`` is the pixel id this lane renders (== lane by default; big
-    # scenes remap lanes into square screen tiles so the streaming trace's
-    # per-ray-tile AABB culling sees tight frustums); the PCG4D streams stay
-    # keyed by lane — any lane->pixel bijection is a valid estimator
-    px = (pix % width).astype(jnp.float32)
-    py = (pix // width).astype(jnp.float32)
+def _camera_ray(prep, lane, sample, seed, width, height, grid):
+    px = (lane % width).astype(jnp.float32)
+    py = (lane // width).astype(jnp.float32)
     gx = (sample % grid).astype(jnp.float32)
     gy = (sample // grid).astype(jnp.float32)
     u1, u2, _, _ = uniforms4(lane, sample.astype(jnp.uint32), _CAMERA_SALT, seed)
@@ -111,22 +90,12 @@ def _nee3(prep, hit, mat, u_l, m_lambert, m_phong, eps, trace_fn=trace):
             0.0,
         ),
     )
-    # visibility: ANY-HIT occlusion kernel on the streaming path (geometry.
-    # light_visible; the light hit t is closed-form so "nearest == light"
-    # decomposes into plane + any-sphere-below tests), nearest trace bounded
-    # by dist + radius + 1 elsewhere. Lanes whose term is dead regardless of
-    # visibility (backfacing bsdf, self-hit, non-scattering) skip the
-    # occlusion work via the sticky-zero bound.
-    needed = not_self & (pdf_b != 0) & (pdf_l > 0) & (m_lambert | m_phong)[:, None]
     visible = light_visible(
         prep,
         (pos + dir_l * eps).reshape(n * num_l, 3),
         dir_l.reshape(n * num_l, 3),
-        jnp.broadcast_to(center, (n, num_l, 3)).reshape(n * num_l, 3),
-        jnp.broadcast_to(radius, (n, num_l)).reshape(n * num_l),
         jnp.broadcast_to(prep.light_obj[None, :], (n, num_l)).reshape(n * num_l),
         trace_fn,
-        needed.reshape(n * num_l),
     ).reshape(n, num_l)
     ok = visible & not_self & (pdf_b != 0) & (pdf_l > 0)
     weight = jnp.where(ok, 1.0 / (pdf_b + pdf_l), 0.0)
@@ -165,12 +134,7 @@ def _nee3_one_light(prep, hit, mat, u_sel, u3, m_lambert, m_phong, eps, trace_fn
             0.0,
         ),
     )
-    # lanes whose term is dead regardless of visibility skip the occlusion
-    # work (sticky-zero bound; ~36% of the big-scene pass was shadow queries)
-    needed = not_self & (pdf_b != 0) & (pdf_l > 0) & (m_lambert | m_phong)
-    visible = light_visible(
-        prep, pos + dir_l * eps, dir_l, center, radius, lobj, trace_fn, needed
-    )
+    visible = light_visible(prep, pos + dir_l * eps, dir_l, lobj, trace_fn)
     ok = visible & not_self & (pdf_b != 0) & (pdf_l > 0)
     weight = jnp.where(ok, num_l / (pdf_b + pdf_l), 0.0)
     return weight[:, None] * fcos * emission
@@ -197,54 +161,13 @@ def _make_loop(
     grid: int,
     config: RenderConfig,
     trace_fn=trace,
-    pix=None,
-    reorder: bool = False,
-    sample_lo=None,
-    sample_hi=None,
 ):
     """Build (init_state, cond, body) for the regenerating wavefront.
 
     Radiance is split into ``radiance`` (completed samples only — folded in
     at path end) and ``r_cur`` (the in-flight sample), so a truncated run
-    can discard partial samples and stay unbiased per completed sample.
-
-    ``reorder=True`` (big scenes): at the end of every iteration the whole
-    per-lane state — lane ids and pixel assignment ride along — is permuted
-    by (ray-origin Morton cell, direction octant). Bounce and NEE rays are
-    spatially scattered across lanes after the first vertex, which defeats
-    the streaming trace's per-ray-tile block culling; keeping the wavefront
-    sorted restores it with ONE argsort per iteration, amortized over every
-    trace call in the body (path + shadow rays share the lane origins).
-    A pure permutation: per-lane PCG4D streams are keyed by the carried lane
-    id, so the estimator is bit-identical — only the lane order (and the
-    final scatter by ``pix``) changes.
-
-    ``sample_lo``/``sample_hi`` (per-lane int32, optional): each lane walks
-    samples [lo, hi) instead of [0, eff_spp) — the lane-multiplier path
-    splits a pixel's eff_spp samples across several lanes (distinct stream
-    keys via distinct lane ids, full stratum coverage via the global sample
-    index), cutting the while_loop's iteration count by the multiplier."""
+    can discard partial samples and stay unbiased per completed sample."""
     n = lane.shape[0]
-    if pix is None:
-        pix = lane
-    if sample_lo is None:
-        s_lo = jnp.zeros((n,), jnp.int32)
-        s_hi = jnp.full((n,), eff_spp, jnp.int32)
-    else:
-        s_lo = jnp.asarray(sample_lo, jnp.int32)
-        s_hi = jnp.asarray(sample_hi, jnp.int32)
-    # per-lane bounds must ride the reorder permutation with the lane ids
-    carry_hi = reorder and sample_lo is not None
-    if reorder:
-        from ..ops.pallas.stream_trace import ray_sort_perm
-
-        if prep.stream_boxes is not None:
-            boxes2 = prep.stream_boxes[:, 0, :]
-            sort_lo = jnp.min(boxes2[:, 0:3], axis=0)
-            sort_hi = jnp.max(boxes2[:, 3:6], axis=0)
-        else:
-            sort_lo = jnp.min(prep.sphere_center, axis=0)
-            sort_hi = jnp.max(prep.sphere_center, axis=0)
     num_lights = prep.light_obj.shape[0]
     eps = jnp.float32(config.surface_epsilon)
     mat3 = {
@@ -264,8 +187,8 @@ def _make_loop(
         config.regen_threshold if config.regen_threshold > 0.0 else 0.01
     )
 
-    sample0 = s_lo
-    o0, d0 = _camera_ray(prep, lane, pix, sample0, seed, width, height, grid)
+    sample0 = jnp.zeros((n,), jnp.int32)
+    o0, d0 = _camera_ray(prep, lane, sample0, seed, width, height, grid)
     state = dict(
         sample=sample0,
         depth=jnp.zeros((n,), jnp.int32),
@@ -287,33 +210,22 @@ def _make_loop(
         # must not keep counting (VERDICT r1 weak #7)
         rays=jnp.zeros((), jnp.float32),
     )
-    if reorder:
-        state["lane"] = lane
-        state["pix"] = jnp.asarray(pix, jnp.uint32)
-        # original row position, so render_lanes can un-permute the result
-        state["row"] = jnp.arange(n, dtype=jnp.uint32)
-        if carry_hi:
-            state["s_hi"] = s_hi
-
     # uniform4 calls per vertex; one-light NEE needs 4 NEE uniforms
     # (selector + 3 sample dims) regardless of L
     n_uni = max(5 + 3 * num_lights, 9 if config.one_light_nee else 0)
     ncalls = -(-n_uni // 4)
 
     def cond(state):
-        return jnp.any(state["sample"] < (state["s_hi"] if carry_hi else s_hi))
+        return jnp.any(state["sample"] < eff_spp)
 
     def body(state):
-        lane_b = state["lane"] if reorder else lane
-        pix_b = state["pix"] if reorder else pix
-        hi_b = state["s_hi"] if carry_hi else s_hi
-        active = state["sample"] < hi_b
+        active = state["sample"] < eff_spp
         sample_u = state["sample"].astype(jnp.uint32)
         depth = state["depth"]
         salt0 = depth.astype(jnp.uint32) * jnp.uint32(ncalls)
         us = []
         for i in range(ncalls):
-            us.extend(uniforms4(lane_b, sample_u, salt0 + jnp.uint32(i), seed))
+            us.extend(uniforms4(lane, sample_u, salt0 + jnp.uint32(i), seed))
         # us[0]=rr, us[1]=transparency coin, us[2]=diffuse coin,
         # us[3], us[4]=bsdf sample, us[5:5+3L]=NEE
 
@@ -447,7 +359,7 @@ def _make_loop(
         path_end = active & ~continuing
         new_sample = jnp.where(path_end, state["sample"] + 1, state["sample"])
         o_cam, d_cam = _camera_ray(
-            prep, lane_b, pix_b, jnp.minimum(new_sample, hi_b - 1), seed, width, height, grid
+            prep, lane, jnp.minimum(new_sample, eff_spp - 1), seed, width, height, grid
         )
         regen = path_end
 
@@ -488,47 +400,18 @@ def _make_loop(
                 else (1 if config.one_light_nee and num_lights > 1 else num_lights)
             ),
         )
-        if reorder:
-            new_state["lane"] = lane_b
-            new_state["pix"] = pix_b
-            new_state["row"] = state["row"]
-            if carry_hi:
-                new_state["s_hi"] = hi_b
-            perm = ray_sort_perm(new_o, new_dir, sort_lo, sort_hi)
-            new_state = {
-                k: (v[perm] if v.ndim >= 1 else v) for k, v in new_state.items()
-            }
         return new_state
 
     return state, cond, body
 
 
-def render_lanes(
-    prep, lane, seed, width, height, eff_spp, grid, config, trace_fn=trace, pix=None,
-    reorder=False, sample_lo=None, sample_hi=None,
-):
-    """Exact engine: loop until every lane finishes all its samples.
-
-    ``reorder=True`` keeps the wavefront sorted by ray coherence each
-    iteration (see ``_make_loop``); the result is un-permuted back to the
-    caller's lane order, so it is bit-identical to ``reorder=False``."""
+def render_lanes(prep, lane, seed, width, height, eff_spp, grid, config, trace_fn=trace):
+    """Exact engine: loop until every lane finishes all its samples."""
     state, cond, body = _make_loop(
-        prep, lane, seed, width, height, eff_spp, grid, config, trace_fn, pix,
-        reorder=reorder, sample_lo=sample_lo, sample_hi=sample_hi,
+        prep, lane, seed, width, height, eff_spp, grid, config, trace_fn
     )
     state = jax.lax.while_loop(cond, body, state)
-    rad = state["radiance"]
-    if reorder:
-        rad = jnp.zeros_like(rad).at[state["row"].astype(jnp.int32)].set(rad)
-    return rad, state["iters"]
-
-
-# jax.checkpoint on the budget scan body (trades ~n_iters x activation
-# memory for one recompute on the backward pass). Tests flip this off when
-# gradding through INTERPRET-mode pallas calls: their io_callback effect
-# cannot be partial-eval'd under remat (a jax limitation the compiled TPU
-# path doesn't have).
-BUDGET_REMAT: bool = True
+    return state["radiance"], state["iters"]
 
 
 def render_lanes_budget(prep, lane, seed, width, height, eff_spp, grid, config, n_iters):
@@ -540,9 +423,9 @@ def render_lanes_budget(prep, lane, seed, width, height, eff_spp, grid, config, 
     across lanes, standard progressive-rendering semantics). Returns
     (radiance_sum [N,3], completed_samples [N])."""
     state, _, body = _make_loop(prep, lane, seed, width, height, eff_spp, grid, config)
-    body_fn = lambda c, _: (body(c), None)
-    if BUDGET_REMAT:
-        body_fn = jax.checkpoint(body_fn, prevent_cse=False)
+    # remat: trades ~n_iters x activation memory for one recompute on the
+    # backward pass
+    body_fn = jax.checkpoint(lambda c, _: (body(c), None), prevent_cse=False)
     state, _ = jax.lax.scan(body_fn, state, None, length=n_iters)
     return state["radiance"], jnp.minimum(state["sample"], eff_spp)
 
@@ -563,54 +446,9 @@ def render_pass_fast(
     divisor = float(spp if config.kajo_spp_quirk else eff)
 
     n = width * height
-    seed = seed_from_key(key)
-    from ..ops.geometry import STREAM_THRESHOLD, _stream_enabled
-
-    # tile remapping and per-iteration reordering only pay off when the
-    # trace actually takes the tile-culling streaming kernel — on dense/
-    # chunked backends the per-iteration argsort+gather is pure overhead
-    streaming = scene.num_spheres > STREAM_THRESHOLD and _stream_enabled()
-    reorder = (
-        (streaming and _REORDER_AUTO)
-        if REORDER_WAVEFRONT is None
-        else REORDER_WAVEFRONT
-    )
-
-    # lane multiplier (streaming scenes): split each pixel's eff samples
-    # across `mult` lanes with distinct stream keys and disjoint global
-    # sample ranges — ~mult-x fewer while_loop iterations, so the
-    # per-iteration glue (and the trace kernels' fixed floor) amortizes
-    # over mult-x more rays. Measured round 4 on config 5: 12 -> 3
-    # iterations, ~1.6x samples/s. Exact same per-pixel sample budget and
-    # strata; streams differ from mult=1 (any lane->(pixel, sample-slice)
-    # bijection is a valid estimator — statistically identical).
-    mult = 1
-    if streaming and LANE_MULT > 1:
-        for m in (LANE_MULT, 2):
-            if eff % m == 0:
-                mult = m
-                break
-    if mult > 1:
-        k = eff // mult
-        lane = jnp.arange(n * mult, dtype=jnp.uint32)
-        pixmap = jnp.asarray(tiled_pixel_order(width, height))
-        pix = pixmap[(lane % n).astype(jnp.int32)]
-        s_lo = ((lane // n) * k).astype(jnp.int32)
-        rgb, _ = render_lanes(
-            prep, lane, seed, width, height, eff, grid, config, pix=pix,
-            reorder=reorder, sample_lo=s_lo, sample_hi=s_lo + k,
-        )
-        rgb = jnp.zeros((n, 3), jnp.float32).at[pix.astype(jnp.int32)].add(rgb)
-        rgb = rgb / divisor
-    else:
-        lane = jnp.arange(n, dtype=jnp.uint32)
-        pix = jnp.asarray(tiled_pixel_order(width, height)) if streaming else None
-        rgb, _ = render_lanes(
-            prep, lane, seed, width, height, eff, grid, config, pix=pix, reorder=reorder
-        )
-        rgb = rgb / divisor
-        if pix is not None:
-            rgb = jnp.zeros_like(rgb).at[pix.astype(jnp.int32)].set(rgb)
+    lane = jnp.arange(n, dtype=jnp.uint32)
+    rgb, _ = render_lanes(prep, lane, seed_from_key(key), width, height, eff, grid, config)
+    rgb = rgb / divisor
     img = jnp.concatenate([rgb, jnp.ones((n, 1), jnp.float32)], axis=1)
     return img.reshape(height, width, 4)
 
@@ -626,14 +464,10 @@ def render_passes_fast(
     n_passes: int,
     config: RenderConfig = RenderConfig(),
 ) -> jax.Array:
-    """Sum of ``n_passes`` wavefront passes in ONE dispatch.
-
-    Per-pass dispatch/readback overhead on the remote TPU runtime dominates
-    the ~250 ms big-scene pass (measured round 4: one-light config-5 runs
-    131K samples/s pass-at-a-time vs 196-200K batched 4-8 under one jit +
-    scan — the same amortization render_passes_megakernel gives the small-
-    scene engine). Pass keys are fold_in(key, pass_offset + i), identical to
-    the unbatched progressive loop."""
+    """Sum of ``n_passes`` wavefront passes in ONE dispatch (one jit + scan),
+    amortizing per-call dispatch and host synchronization over the batch.
+    Pass keys are fold_in(key, pass_offset + i), identical to the unbatched
+    progressive loop."""
     def body(carry, i):
         img = render_pass_fast(
             scene, jax.random.fold_in(key, pass_offset + i), width, height, spp, config
@@ -644,31 +478,6 @@ def render_passes_fast(
         body, jnp.zeros((height, width, 4), jnp.float32), jnp.arange(n_passes)
     )
     return total
-
-
-# screen-tile edge for the lane->pixel mapping below (A/B knob; round-5
-# interleaved sweep on config 5 at 128x96: 128 ~= 64 > 32 within the noise
-# floor — note at that size ts=128 degenerates to scanline order, so the
-# mapping matters little at bench resolution; 64 stays the default for the
-# real production sizes where 4096-lane tiles get compact frustums)
-TILE_TS: int = 64
-
-
-def tiled_pixel_order(width, height, ts: int | None = None):
-    """Lane -> pixel id mapping walking the image in ts x ts screen tiles
-    (host-side, static per resolution). Square tiles give the streaming
-    trace's 4096-lane ray tiles compact frustums, so the per-block AABB
-    cull rejects far more sphere blocks than scanline-strip tiles do."""
-    import numpy as np
-
-    if ts is None:
-        ts = TILE_TS
-    xs, ys = np.meshgrid(np.arange(width), np.arange(height))
-    tiles_x = -(-width // ts)
-    tile_id = (ys // ts) * tiles_x + (xs // ts)
-    within = (ys % ts) * ts + (xs % ts)
-    order = np.argsort((tile_id * (ts * ts) + within).ravel(), kind="stable")
-    return order.astype(np.uint32)
 
 
 @partial(jax.jit, static_argnames=("width", "height", "spp", "config"))

@@ -1,6 +1,6 @@
 """Batched ray geometry: camera basis, scene preparation, nearest-hit trace.
 
-TPU-first redesign of the reference's per-ray recursive intersection scan
+Array-first redesign of the reference's per-ray recursive intersection scan
 (spec /root/reference/renderer/cpu/Raytracer.cpp): instead of looping objects
 per ray, we intersect **all rays x all objects** as dense array ops and take a
 masked argmin over the object axis. Object ids are planes-first then spheres,
@@ -37,8 +37,9 @@ from .sampling import safe_normalize, safe_sqrt
 
 FLT_EPSILON = jnp.float32(1.1920928955078125e-07)
 INF = jnp.float32(jnp.inf)
-# All geometry matmuls must run at full f32: the TPU's default bf16-pass
-# matmul precision visibly shifts ray-object intersections.
+# All geometry matmuls must run at full f32: on a GPU a float32 product may
+# otherwise run in TF32, which keeps about three decimal digits and visibly
+# shifts ray-object intersections.
 HI = jax.lax.Precision.HIGHEST
 
 
@@ -73,7 +74,7 @@ class PreparedScene:
     ``rigid`` is static: True when every sphere transform is rigid
     (orthonormal linear part, det +1, checked at scene load). Rigid scenes
     use the fast world-space sphere path: the ray-sphere quadratic reduces to
-    two [N,3]x[3,S] matmuls (MXU) plus elementwise work, with *identical*
+    two [N,3]x[3,S] matmuls plus elementwise work, with *identical*
     results to the reference's object-space formulation (R^T preserves
     lengths, det=1 makes the t-scaling a no-op, and the world normal equals
     (hit - center)/radius exactly)."""
@@ -102,12 +103,6 @@ class PreparedScene:
     materials: Materials      # K = P + S
     background: jax.Array     # [4]
     camera: CameraBasis
-    # big-scene streaming-trace cache (ops/pallas/stream_trace.py): Morton-
-    # sorted packed spheres + per-block AABBs + the sort permutation; None
-    # when the scene is below STREAM_THRESHOLD or streaming is unavailable
-    stream_packed: jax.Array | None = None
-    stream_boxes: jax.Array | None = None
-    stream_perm: jax.Array | None = None
 
 
 @_pytree_dataclass
@@ -193,15 +188,6 @@ def prepare_scene(scene: Scene) -> PreparedScene:
         background=jnp.asarray(scene.background, jnp.float32),
         camera=camera_basis(scene.camera),
     )
-    if radius.shape[0] > STREAM_THRESHOLD and _stream_enabled():
-        # precompute the Morton packing once per prepare (the trace inside
-        # the wavefront loop must not re-sort 100k spheres every iteration)
-        from .pallas.stream_trace import build_stream_scene
-
-        packed, boxes, perm = build_stream_scene(prep)
-        prep = dataclasses.replace(
-            prep, stream_packed=packed, stream_boxes=boxes, stream_perm=perm
-        )
     return prep
 
 
@@ -240,7 +226,7 @@ def _intersect_spheres(prep: PreparedScene, o, d):
 
 def _intersect_spheres_rigid(prep: PreparedScene, o, d):
     """World-space sphere hits for rigid scenes: |o + t d - c|² = r² with
-    |d| = 1. The ray-dependent work is two [N,3]x[3,S] matmuls (MXU); results
+    |d| = 1. The ray-dependent work is two [N,3]x[3,S] matmuls; results
     match the object-space path exactly (isometry + det 1). Returns t [N,S]."""
     c = prep.sphere_center  # [S, 3]
     d_dot_c = _mm(d, c.T)  # [N, S]
@@ -267,31 +253,6 @@ def _intersect_spheres_rigid(prep: PreparedScene, o, d):
 # running nearest-hit instead. 100k spheres x 256k rays stays ~N*CHUNK.
 BIG_SCENE_THRESHOLD = 8192
 BIG_SCENE_CHUNK = 2048
-# On TPU, scenes above this sphere count use the Pallas streaming trace
-# (ops/pallas/stream_trace.py): rays resident in VMEM, sphere blocks streamed
-# HBM->SMEM with double-buffered DMA, both rigid and general transforms.
-STREAM_THRESHOLD = 1024
-# tests force the streaming path on the CPU interpreter: None = auto
-# (TPU backend only), True/False = override
-FORCE_STREAM: bool | None = None
-# Sort rays by (origin Morton cell, direction octant) before the streaming
-# kernel so ray tiles stay coherent for bounce/NEE rays (stream_trace.py
-# ray_sort_perm). Bit-identical results; flag exists for A/B benchmarking.
-# HISTORY: introduced in round 3 when it won big (scanline-ordered lanes);
-# round 4's tiled pixel order + lane multiplier made lanes tile-coherent at
-# the SOURCE, and round 5's interleaved (drift-cancelling, AOT-paired) A/Bs
-# show the two ~10-40 ms argsort+gather rounds per wavefront iteration now
-# cost more than the culling they buy: config 5 (100k, depth 2) 206K
-# unsorted vs 194K sorted; 10k spheres 256x192 depth 4 1116K vs 820K
-# (+36%); the only regime sorting still edges out is 100k depth 4 (183K vs
-# 179K — within noise). Default OFF since round 5 (tools/sort_ab3.py).
-SORT_STREAM_RAYS: bool = False
-
-
-def _stream_enabled() -> bool:
-    if FORCE_STREAM is not None:
-        return FORCE_STREAM
-    return jax.default_backend() == "tpu"
 
 
 def _intersect_spheres_rigid_chunked(prep: PreparedScene, o, d):
@@ -353,8 +314,7 @@ def _intersect_spheres_rigid_chunked(prep: PreparedScene, o, d):
 def _intersect_spheres_general_chunked(prep: PreparedScene, o, d):
     """Running nearest-hit over sphere blocks for NON-rigid big scenes: the
     object-space quadratic with determinant-scaled t (Raytracer.cpp:21-51,70),
-    streamed in blocks so peak memory stays O(N*C). XLA fallback for backends
-    without the Pallas streaming kernel."""
+    streamed in blocks so peak memory stays O(N*C)."""
     n = o.shape[0]
     s = prep.sphere_inv3.shape[0]
     c = min(BIG_SCENE_CHUNK, s, max(256, (1 << 25) // max(n, 1)))
@@ -432,16 +392,8 @@ def _sphere_tangent(n):
     return safe_normalize(t)
 
 
-def trace(prep: PreparedScene, o: jax.Array, d: jax.Array, t_max=None) -> SurfaceHit:
-    """Nearest hit over all objects; batched equivalent of Raytracer::trace.
-
-    ``t_max`` (optional, per ray): a search bound — hits beyond it MAY be
-    reported as misses. Only shadow/visibility queries pass it (the answer
-    is an object-identity compare against something within the bound, so
-    pruning far hits cannot change it); the streaming kernel uses it to
-    seed its nearest-hit and skip sphere blocks beyond the light. The
-    dense/chunked paths ignore it (they return the true nearest, which is
-    also a valid answer)."""
+def trace(prep: PreparedScene, o: jax.Array, d: jax.Array) -> SurfaceHit:
+    """Nearest hit over all objects; batched equivalent of Raytracer::trace."""
     num_p = prep.plane_nrow.shape[0]
     num_s = prep.sphere_radius2.shape[0]
     if num_p + num_s == 0:  # empty scene: every ray misses
@@ -457,13 +409,10 @@ def trace(prep: PreparedScene, o: jax.Array, d: jax.Array, t_max=None) -> Surfac
             view=d,
         )
 
-    use_stream = num_s > STREAM_THRESHOLD and _stream_enabled()
-    chunked = use_stream or num_s > BIG_SCENE_THRESHOLD
+    chunked = num_s > BIG_SCENE_THRESHOLD
     if chunked:
-        # big-scene path: planes dense FIRST (P is small) — their nearest hit
-        # seeds the sphere kernel's per-ray search bound, so a ray that hits
-        # the ground early culls every sphere block beyond it — then spheres
-        # streamed in blocks (Pallas kernel on TPU, XLA scan elsewhere)
+        # big-scene path: planes dense (P is small), spheres scanned in
+        # blocks with a running nearest hit
         if num_p:
             tp, _ = _intersect_planes(prep, o, d)
             pidx = jnp.argmin(tp, axis=1).astype(jnp.int32)
@@ -471,30 +420,7 @@ def trace(prep: PreparedScene, o: jax.Array, d: jax.Array, t_max=None) -> Surfac
         else:
             t_pl = jnp.full((o.shape[0],), INF, jnp.float32)
             pidx = jnp.zeros((o.shape[0],), jnp.int32)
-        bound = t_pl if t_max is None else jnp.minimum(t_pl, t_max)
-        if use_stream:
-            from .pallas.stream_trace import nearest_sphere, ray_sort_perm
-
-            if SORT_STREAM_RAYS and prep.stream_boxes is not None:
-                # group rays by (origin cell, direction octant) so each kernel
-                # ray tile is spatially coherent — bounce/NEE rays are lane-
-                # scattered and would otherwise defeat the per-tile block cull.
-                # Pure permutation: results (and gradients, via the gathers)
-                # are bit-identical to the unsorted call.
-                boxes2 = prep.stream_boxes[:, 0, :]
-                blo = jnp.min(boxes2[:, 0:3], axis=0)
-                bhi = jnp.max(boxes2[:, 3:6], axis=0)
-                perm_r = ray_sort_perm(o, d, blo, bhi)
-                t_s, i_s = nearest_sphere(
-                    prep, o[perm_r], d[perm_r], bound[perm_r]
-                )
-                inv_r = jnp.zeros_like(perm_r).at[perm_r].set(
-                    jnp.arange(perm_r.shape[0])
-                )
-                t_sph, sidx_best = t_s[inv_r], i_s[inv_r]
-            else:
-                t_sph, sidx_best = nearest_sphere(prep, o, d, bound)
-        elif prep.rigid:
+        if prep.rigid:
             t_sph, sidx_best = _intersect_spheres_rigid_chunked(prep, o, d)
         else:
             t_sph, sidx_best = _intersect_spheres_general_chunked(prep, o, d)
@@ -536,7 +462,7 @@ def trace(prep: PreparedScene, o: jax.Array, d: jax.Array, t_max=None) -> Surfac
         t_sph = _sphere_tangent(n_sph)
     elif num_s:
         if chunked:
-            # no per-candidate arrays on the streamed path: recompute the
+            # no per-candidate arrays on the chunked path: recompute the
             # winner's object-space hit from its gathered transform
             inv3_w = prep.sphere_inv3[sidx]
             os_hit = jnp.einsum("nij,nj->ni", inv3_w, o, precision=HI) + prep.sphere_invt[sidx]
@@ -578,100 +504,10 @@ def trace(prep: PreparedScene, o: jax.Array, d: jax.Array, t_max=None) -> Surfac
     )
 
 
-# NEE shadow queries on the streaming path answer visibility with the ANY-HIT
-# occlusion kernel (stream_trace.occluded_sphere) instead of a full nearest
-# trace: no winner tracking, and an occluded lane's bound drops to 0 so every
-# later block culls — with front-to-back ordering a shadowed lane stops
-# paying after its first occluder. False = always use the nearest trace.
-OCCL_SHADOW: bool = True
-
-
-def light_visible(
-    prep: PreparedScene, o, d, center, radius, lobj, trace_fn=None, needed=None
-):
+def light_visible(prep: PreparedScene, o, d, lobj, trace_fn=None):
     """NEE visibility: does the nearest hit along (o, d) land on light lobj?
 
-    Semantics = ``trace(prep, o, d).obj == lobj`` (the reference's canReach,
-    cpu/Shader.cpp:205-216 — the shadow ray must FIND the light, so any
-    strictly nearer object occludes). ``center``/``radius``/``lobj`` describe
-    the queried light per ray ([M,3], [M], [M] int32).
-
-    ``needed`` (optional bool [M]): lanes whose NEE term is zero REGARDLESS
-    of visibility (backfacing bsdf, self-hit — the caller's ``ok`` mask
-    already ands them out). The fast path zeroes their search bound so the
-    sticky-zero cull skips their sphere work entirely; their returned value
-    is unspecified (the caller must mask, as it already does). The fallback
-    nearest-trace path ignores ``needed`` — renders are identical either
-    way because dead lanes' contributions are masked downstream.
-
-    Fast path (rigid streamed scenes, default trace): the light's hit t is
-    closed-form (the SAME stable quadratic, same operand order, same input
-    bits — center/radius come from the identical prepare_scene gathers the
-    packed stream was built from), so visibility decomposes into "no plane
-    at t <= t_light" (dense, P is small) and "no OTHER sphere strictly below
-    t_light" (ANY-HIT streaming kernel with per-lane sticky-zero bounds; the
-    light's own Morton index is excluded in-kernel, so tangency-grade fp
-    noise can never self-occlude). Exactness vs the nearest-based answer:
-    identical up to exact f32 ties between DISTINCT objects (nearest breaks
-    them by stream order; measure-zero for real scenes) — gated by an
-    equality test on a random scene (tests/test_bigscene.py)."""
-    num_s = prep.sphere_radius2.shape[0]
-    use_stream = num_s > STREAM_THRESHOLD and _stream_enabled()
-    dflt = trace_fn is None or trace_fn is trace
-    if not (use_stream and prep.rigid and OCCL_SHADOW and dflt
-            and prep.stream_perm is not None):
-        tf = trace_fn or trace
-        dist = jnp.linalg.norm(center - o, axis=-1)
-        sh = tf(prep, o, d, t_max=dist + radius + 1.0)
-        return sh.obj == lobj
-
-    from .pallas.stream_trace import _quadratic_rigid, occluded_sphere, ray_sort_perm
-
-    # analytic light hit — bit-identical to the nearest kernel's own compute:
-    # same stable quadratic with d.o / o.o accumulated in the kernel's
-    # left-to-right component order
-    ot = (o[:, 0], o[:, 1], o[:, 2])
-    dt = (d[:, 0], d[:, 1], d[:, 2])
-    d_dot_o = dt[0] * ot[0] + dt[1] * ot[1] + dt[2] * ot[2]
-    o2 = ot[0] * ot[0] + ot[1] * ot[1] + ot[2] * ot[2]
-    t_l, valid_l = _quadratic_rigid(
-        center[:, 0], center[:, 1], center[:, 2], radius * radius,
-        ot, dt, d_dot_o, o2,
-    )
-
-    if prep.plane_nrow.shape[0]:
-        tp, _ = _intersect_planes(prep, o, d)
-        t_pl = jnp.min(tp, axis=1)
-        plane_occ = t_pl <= t_l  # nearest breaks the tie for the plane
-    else:
-        t_pl = jnp.full_like(t_l, INF)
-        plane_occ = jnp.zeros_like(valid_l)
-
-    # the light's own sphere is excluded in-kernel: the cut is the EXACT t_l.
-    # stream_perm is padded to whole blocks (pad rows map to sphere 0, packed
-    # r2 == -1) and block-permuted — route pad rows out of range so the
-    # scatter drops them instead of clobbering sphere 0's true position
-    num_p = prep.plane_nrow.shape[0]
-    sp = prep.stream_perm.astype(jnp.int32)
-    tgt = jnp.where(prep.stream_packed[:, 3] < 0.0, num_s, sp)
-    inv_perm = jnp.zeros((num_s,), jnp.int32).at[tgt].set(
-        jnp.arange(sp.shape[0], dtype=jnp.int32), mode="drop"
-    )
-    excl = inv_perm[jnp.clip(lobj - num_p, 0, num_s - 1)]
-    t_cut = jnp.minimum(t_l, t_pl)
-    t_cut = jnp.where(valid_l, t_cut, 0.0)  # light missed: occluded, free
-    if needed is not None:
-        t_cut = jnp.where(needed, t_cut, 0.0)  # dead NEE term: free too
-    if SORT_STREAM_RAYS and prep.stream_boxes is not None:
-        boxes2 = prep.stream_boxes[:, 0, :]
-        blo = jnp.min(boxes2[:, 0:3], axis=0)
-        bhi = jnp.max(boxes2[:, 3:6], axis=0)
-        perm_r = ray_sort_perm(o, d, blo, bhi)
-        occ_s = occluded_sphere(
-            prep, o[perm_r], d[perm_r], t_cut[perm_r], excl[perm_r]
-        )
-        inv_r = jnp.zeros_like(perm_r).at[perm_r].set(jnp.arange(perm_r.shape[0]))
-        sphere_occ = occ_s[inv_r]
-    else:
-        sphere_occ = occluded_sphere(prep, o, d, t_cut, excl)
-    return valid_l & ~plane_occ & ~sphere_occ
+    The reference's canReach (cpu/Shader.cpp:205-216): the shadow ray must
+    FIND the light, so any strictly nearer object occludes. ``lobj`` is the
+    queried light's object id per ray ([M] int32)."""
+    return (trace_fn or trace)(prep, o, d).obj == lobj

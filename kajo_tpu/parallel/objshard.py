@@ -4,8 +4,8 @@ The SURVEY §2.5 scaling design for scenes too large (or too slow) to trace
 per chip: shard the *sphere array* over the mesh instead of the rays — the
 ring-attention/CP analogue where the rays stay resident and the scene is the
 sharded operand. Each device traces its sphere shard (through the same
-streaming Pallas kernel / chunked paths as the single-chip engine), then the
-global nearest hit is reduced with XLA collectives over ICI:
+dense / chunked paths as the single-device engine), then the global nearest
+hit is reduced with XLA collectives:
 
     t_global   = pmin(t_local)
     winner_dev = pmin(device_index | not-winner -> +inf)
@@ -30,14 +30,7 @@ import jax.numpy as jnp
 from jax.sharding import Mesh, PartitionSpec as P
 
 from ..models.integrator import RenderConfig
-from ..ops.geometry import (
-    STREAM_THRESHOLD,
-    PreparedScene,
-    SurfaceHit,
-    _stream_enabled,
-    prepare_scene,
-    trace,
-)
+from ..ops.geometry import PreparedScene, SurfaceHit, prepare_scene, trace
 from ..scene.types import Scene
 
 OBJ_AXIS = "data"  # reuse the 1-D mesh's axis; semantics here are object-parallel
@@ -50,8 +43,8 @@ def _round_up(n, m):
 def make_objsharded_trace(num_planes: int, shard: int, axis: str):
     """trace_fn computing the global nearest hit across sphere shards."""
 
-    def trace_fn(prep_local, o, d, t_max=None):
-        h = trace(prep_local, o, d, t_max)
+    def trace_fn(prep_local, o, d):
+        h = trace(prep_local, o, d)
         dev = jax.lax.axis_index(axis)
         gobj = jnp.where(h.obj >= num_planes, h.obj + dev * shard, h.obj)
         t_g = jax.lax.pmin(h.t, axis)
@@ -92,12 +85,8 @@ def _pad_prep_spheres(prep: PreparedScene, s_pad: int) -> PreparedScene:
             [a, jnp.full((pad,) + a.shape[1:], fill, a.dtype)], axis=0
         )
 
-    # Padding CENTERS must stay inside the real scene bounds: the shard that
-    # receives them rebuilds its own stream packing, whose AABB slack and
-    # Morton quantization are derived from the global center extents — a
-    # 1e30 outlier inflates the slack to ~1e26 and defeats every block cull
-    # on that device (and SPMD gates the whole render on the slowest shard).
-    # Repeat the last real center; r² = -1 keeps the pads unhittable.
+    # Repeat the last real center (keeps every value finite and in range);
+    # r² = -1 keeps the pads unhittable.
     last_center = prep.sphere_center[-1:] if s else jnp.zeros((1, 3), jnp.float32)
 
     def pad_center(a):
@@ -114,10 +103,8 @@ def _pad_prep_spheres(prep: PreparedScene, s_pad: int) -> PreparedScene:
         sphere_inv3=padn(prep.sphere_inv3),
         sphere_invt=padn(prep.sphere_invt),
         sphere_fwd3=padn(prep.sphere_fwd3),
-        # large, not 0: a det-0 pad would zero its block's min-det cull
-        # bound in the shard's stream packing (pads are unhittable either
-        # way — inv3 = 0 makes the quadratic's a == 0 -> invalid)
-        sphere_det=padn(prep.sphere_det, 1e30),
+        # pads are unhittable: inv3 = 0 makes the quadratic's a == 0
+        sphere_det=padn(prep.sphere_det, 1.0),
     )
 
 
@@ -146,10 +133,6 @@ def render_pass_fast_objsharded(
 
     n_dev = mesh.shape[axis_name]
     prep = prepare_scene(scene)
-    # the cached single-chip stream packing is global; shards rebuild theirs
-    prep = dataclasses.replace(
-        prep, stream_packed=None, stream_boxes=None, stream_perm=None
-    )
     s = prep.sphere_center.shape[0]
     shard = _round_up(max(s, 1), n_dev) // n_dev
     prep = _pad_prep_spheres(prep, shard * n_dev)
@@ -174,13 +157,6 @@ def render_pass_fast_objsharded(
     trace_fn = make_objsharded_trace(num_planes, shard, axis_name)
 
     def shard_fn(prep_l, lane, seed):
-        if shard > STREAM_THRESHOLD and _stream_enabled():
-            from ..ops.pallas.stream_trace import build_stream_scene
-
-            packed, boxes, perm = build_stream_scene(prep_l)
-            prep_l = dataclasses.replace(
-                prep_l, stream_packed=packed, stream_boxes=boxes, stream_perm=perm
-            )
         rgb, _ = render_lanes(
             prep_l, lane, seed.reshape(()), width, height, eff, grid, config,
             trace_fn=trace_fn,

@@ -154,8 +154,9 @@ def unproject(win, view: Array, proj: Array, xp=np) -> Array:
         inv = np.linalg.inv((proj @ view).astype(np.float32))
         out = inv @ v
     else:
-        # TPU default matmul precision is bf16-pass based; camera rays need
-        # full f32 (a 1e-4 basis error visibly shifts the image)
+        # full f32: on a GPU a float32 product may otherwise run in TF32,
+        # which keeps about three decimal digits, and a 1e-4 camera-basis
+        # error visibly shifts the image
         import jax
 
         hi = jax.lax.Precision.HIGHEST

@@ -6,6 +6,7 @@ import dataclasses
 import jax
 import jax.numpy as jnp
 import numpy as np
+import pytest
 
 from kajo_tpu.ops import geometry
 from kajo_tpu.scene.procedural import random_spheres_scene
@@ -41,551 +42,6 @@ def test_chunked_trace_matches_dense():
     assert np.percentile(cos[hit], 0.5) > 0.9999
 
 
-def _force_stream(on):
-    geometry.FORCE_STREAM = on
-
-
-def test_front_to_back_is_pure_visitation_order():
-    """The camera-distance block sort (stream_trace.FRONT_TO_BACK) is a pack
-    -time data permutation: winners and hit distances are identical to the
-    raw Morton order, for primary AND scattered rays."""
-    from jax.experimental.pallas import tpu as pltpu
-
-    from kajo_tpu.ops.pallas import stream_trace as st
-
-    scene = random_spheres_scene(600, seed=11, extent=20.0, n_lights=1)
-    prep = geometry.prepare_scene(scene)
-    xs, ys = jnp.meshgrid(jnp.linspace(0.02, 0.98, 32), jnp.linspace(0.02, 0.98, 16))
-    o_pri, d_pri = geometry.generate_rays(prep.camera, xs.ravel(), ys.ravel())
-    k1, k2 = jax.random.split(jax.random.PRNGKey(3))
-    o_sc = jax.random.uniform(k1, o_pri.shape, minval=-18.0, maxval=18.0)
-    d_sc = jax.random.normal(k2, d_pri.shape)
-    d_sc = d_sc / jnp.linalg.norm(d_sc, axis=-1, keepdims=True)
-    o = jnp.concatenate([o_pri, o_sc])
-    d = jnp.concatenate([d_pri, d_sc])
-
-    from kajo_tpu.ops.pallas.stream_trace import nearest_sphere
-
-    orig = geometry.STREAM_THRESHOLD
-    saved = st.FRONT_TO_BACK
-    try:
-        geometry.STREAM_THRESHOLD = 64
-        _force_stream(True)
-        with pltpu.force_tpu_interpret_mode():
-            st.FRONT_TO_BACK = False
-            t_off, i_off = nearest_sphere(prep, o, d)
-            st.FRONT_TO_BACK = True
-            t_on, i_on = nearest_sphere(prep, o, d)
-    finally:
-        geometry.STREAM_THRESHOLD = orig
-        st.FRONT_TO_BACK = saved
-        _force_stream(None)
-    np.testing.assert_array_equal(np.asarray(i_off), np.asarray(i_on))
-    np.testing.assert_array_equal(np.asarray(t_off), np.asarray(t_on))
-
-
-def test_stream_trace_matches_dense_rigid():
-    """Pallas streaming kernel (interpret mode) == dense path, exactly."""
-    from jax.experimental.pallas import tpu as pltpu
-
-    scene = random_spheres_scene(700, seed=5, extent=20.0, n_lights=2)
-    prep = geometry.prepare_scene(scene)
-    xs, ys = jnp.meshgrid(jnp.linspace(0.02, 0.98, 40), jnp.linspace(0.02, 0.98, 30))
-    o, d = geometry.generate_rays(prep.camera, xs.ravel(), ys.ravel())
-
-    dense = geometry.trace(prep, o, d)
-    orig = geometry.STREAM_THRESHOLD
-    try:
-        geometry.STREAM_THRESHOLD = 64
-        _force_stream(True)
-        with pltpu.force_tpu_interpret_mode():
-            streamed = geometry.trace(prep, o, d)
-    finally:
-        geometry.STREAM_THRESHOLD = orig
-        _force_stream(None)
-    np.testing.assert_array_equal(np.asarray(dense.obj), np.asarray(streamed.obj))
-    # dense uses HIGHEST-precision matmuls, the kernel explicit FMA sums ->
-    # last-ulp rounding differences only (same class as the chunked path)
-    np.testing.assert_allclose(np.asarray(dense.t), np.asarray(streamed.t), rtol=1e-4)
-    cos = np.sum(np.asarray(dense.normal) * np.asarray(streamed.normal), -1)
-    hit = np.asarray(dense.obj) >= 0
-    assert np.percentile(cos[hit], 0.5) > 0.9999
-
-
-def test_stream_trace_matches_dense_nonrigid():
-    """The streaming kernel lifts the big-scene rigid-only restriction:
-    scaled/rotated sphere transforms go through the object-space layout."""
-    from jax.experimental.pallas import tpu as pltpu
-
-    from kajo_tpu.utils import math3d
-
-    scene = random_spheres_scene(300, seed=7, extent=15.0, n_lights=1)
-    # bend some transforms: non-uniform scale + rotation -> rigid=False
-    st = np.asarray(scene.sphere_transform).copy()
-    for i in range(0, len(st), 3):
-        m = math3d.rotate(math3d.identity(), 30.0 + i, [0, 1, 0])
-        m = m @ np.diag([1.4, 0.8, 1.0, 1.0]).astype(np.float32)
-        st[i] = st[i] @ m
-    scene = dataclasses.replace(scene, sphere_transform=st, rigid_spheres=False)
-    prep = geometry.prepare_scene(scene)
-    assert not prep.rigid
-
-    xs, ys = jnp.meshgrid(jnp.linspace(0.02, 0.98, 32), jnp.linspace(0.02, 0.98, 24))
-    o, d = geometry.generate_rays(prep.camera, xs.ravel(), ys.ravel())
-    dense = geometry.trace(prep, o, d)
-    orig = geometry.STREAM_THRESHOLD
-    try:
-        geometry.STREAM_THRESHOLD = 64
-        _force_stream(True)
-        with pltpu.force_tpu_interpret_mode():
-            streamed = geometry.trace(prep, o, d)
-    finally:
-        geometry.STREAM_THRESHOLD = orig
-        _force_stream(None)
-    np.testing.assert_array_equal(np.asarray(dense.obj), np.asarray(streamed.obj))
-    np.testing.assert_allclose(np.asarray(dense.t), np.asarray(streamed.t), rtol=1e-4)
-    cos = np.sum(np.asarray(dense.normal) * np.asarray(streamed.normal), -1)
-    hit = np.asarray(dense.obj) >= 0
-    assert np.percentile(cos[hit], 0.5) > 0.999
-
-
-def test_budget_grad_through_streaming_matches_dense():
-    """End-to-end inverse rendering at scale: jax.grad of the budget
-    wavefront render w.r.t. every sphere radius, with BOTH the camera/bounce
-    traces and the NEE visibility queries going through the streaming
-    kernel's custom_vjp. The streamed forward is bit-exact vs dense, so the
-    same paths are taken and the gradient must match the dense-path
-    autodiff up to float reassociation."""
-    from jax.experimental.pallas import tpu as pltpu
-
-    from kajo_tpu.models.integrator import RenderConfig
-    from kajo_tpu.models.wavefront import render_pass_budget
-
-    scene = jax.tree.map(jnp.asarray, random_spheres_scene(200, seed=21, extent=15.0, n_lights=2))
-    cfg = RenderConfig(max_depth=2)
-    key = jax.random.PRNGKey(11)
-
-    def loss(rad):
-        s2 = dataclasses.replace(scene, sphere_radius=rad)
-        im = render_pass_budget(s2, key, 12, 9, 4, cfg)
-        return jnp.mean(im[..., :3])
-
-    import kajo_tpu.models.wavefront as wf
-
-    rad0 = jnp.asarray(scene.sphere_radius)
-    g_dense = np.asarray(jax.grad(loss)(rad0))
-    orig = (geometry.STREAM_THRESHOLD, wf.BUDGET_REMAT)
-    try:
-        geometry.STREAM_THRESHOLD = 64
-        # interpret-mode pallas callbacks can't live under jax.checkpoint
-        # (OrderedIOEffect in remat partial-eval); the compiled TPU path can
-        wf.BUDGET_REMAT = False
-        _force_stream(True)
-        with pltpu.force_tpu_interpret_mode():
-            g_stream = np.asarray(jax.grad(loss)(rad0))
-    finally:
-        geometry.STREAM_THRESHOLD, wf.BUDGET_REMAT = orig
-        _force_stream(None)
-    assert np.isfinite(g_stream).all()
-    assert np.abs(g_dense).max() > 0  # real signal
-    # identical paths -> same gradient structure. Per-element: the vjp's
-    # scalar hit recompute vs the dense path's HIGHEST-precision matmuls
-    # differ at ~1e-4 in t, which dt/dr amplifies near grazing hits — a few
-    # percent on isolated entries; the direction gate below is the tight one
-    big = np.abs(g_dense) > 1e-3 * np.abs(g_dense).max()
-    np.testing.assert_allclose(g_stream[big], g_dense[big], rtol=0.1)
-    cos = float(
-        (g_stream * g_dense).sum()
-        / max(np.linalg.norm(g_stream) * np.linalg.norm(g_dense), 1e-30)
-    )
-    assert cos > 0.999, cos
-
-
-def test_procedural_nonrigid_streams_match_dense():
-    """random_spheres_scene(scale_jitter=...) produces a non-rigid scene
-    (rotations + uniform scales, dets spread ~(1+j)^-3..(1+j)^3) whose
-    streaming trace matches the dense path — the procedural generator for
-    the config-5-nonrigid bench row."""
-    from jax.experimental.pallas import tpu as pltpu
-
-    scene = random_spheres_scene(600, seed=9, extent=20.0, n_lights=2, scale_jitter=0.6)
-    assert not scene.rigid_spheres
-    prep = geometry.prepare_scene(scene)
-    dets = np.asarray(prep.sphere_det)
-    assert dets.min() < 0.5 and dets.max() > 2.0
-
-    xs, ys = jnp.meshgrid(jnp.linspace(0.02, 0.98, 32), jnp.linspace(0.02, 0.98, 24))
-    o, d = geometry.generate_rays(prep.camera, xs.ravel(), ys.ravel())
-    dense = geometry.trace(prep, o, d)
-    orig = geometry.STREAM_THRESHOLD
-    try:
-        geometry.STREAM_THRESHOLD = 64
-        _force_stream(True)
-        with pltpu.force_tpu_interpret_mode():
-            streamed = geometry.trace(prep, o, d)
-    finally:
-        geometry.STREAM_THRESHOLD = orig
-        _force_stream(None)
-    np.testing.assert_array_equal(np.asarray(dense.obj), np.asarray(streamed.obj))
-    # dense path uses HIGHEST-precision matmuls for the object-space ray
-    # transform, the kernel explicit FMAs; 0.6 scale jitter worsens the
-    # quadratic's conditioning -> slightly looser than the rigid gate
-    np.testing.assert_allclose(np.asarray(dense.t), np.asarray(streamed.t), rtol=3e-4)
-
-
-def test_stream_cull_det_scaled_t():
-    """Det-scaled hit distances vs world-space culling: the reference's
-    Raytracer.cpp:70 semantics report t = t_loc * det, so a sphere with
-    det < 1 can WIN the nearest-hit comparison while sitting farther (in
-    world space) than the current best — a naive `t_enter < t_best` block
-    cull drops it. Box slot 6 (block min det) restores conservativeness.
-    This scene has dets spanning 0.008-8 (uniform scales 0.2-2.0), the
-    adversarial case; every stream variant must still match dense exactly."""
-    from jax.experimental.pallas import tpu as pltpu
-
-    from kajo_tpu.ops.pallas import stream_trace as st
-    from kajo_tpu.utils import math3d
-
-    scene = random_spheres_scene(400, seed=13, extent=18.0, n_lights=1)
-    stm = np.asarray(scene.sphere_transform).copy()
-    rng = np.random.default_rng(5)
-    scales = rng.choice([0.2, 0.5, 1.0, 2.0], size=len(stm))
-    for i, s_ in enumerate(scales):
-        m = math3d.rotate(math3d.identity(), 10.0 * i, [0, 1, 1])
-        stm[i] = stm[i] @ m @ np.diag([s_, s_, s_, 1.0]).astype(np.float32)
-    scene = dataclasses.replace(scene, sphere_transform=stm, rigid_spheres=False)
-    prep = geometry.prepare_scene(scene)
-    assert not prep.rigid
-    dets = np.asarray(prep.sphere_det)
-    assert dets.min() < 0.01 and dets.max() > 7.9  # the spread under test
-
-    xs, ys = jnp.meshgrid(jnp.linspace(0.02, 0.98, 32), jnp.linspace(0.02, 0.98, 24))
-    o_c, d_c = geometry.generate_rays(prep.camera, xs.ravel(), ys.ravel())
-    k = jax.random.PRNGKey(3)
-    n = st.RAY_ROWS * 128
-    o_s = jax.random.uniform(k, (n, 3), minval=-20.0, maxval=20.0)
-    dr = jax.random.normal(jax.random.fold_in(k, 1), (n, 3))
-    d_s = dr / jnp.linalg.norm(dr, axis=-1, keepdims=True)
-    t_s = jax.random.uniform(jax.random.fold_in(k, 2), (n,), minval=2.0, maxval=60.0)
-
-    dense_c = geometry.trace(prep, o_c, d_c)
-    dense_s = geometry.trace(prep, o_s, d_s, t_s)
-    orig = (geometry.STREAM_THRESHOLD, st.KERNEL_V4, st.TILE_FRUSTUM)
-    try:
-        geometry.STREAM_THRESHOLD = 64
-        _force_stream(True)
-        with pltpu.force_tpu_interpret_mode():
-            for v4, frustum in ((True, False), (False, False), (False, True)):
-                st.KERNEL_V4, st.TILE_FRUSTUM = v4, frustum
-                stream_c = geometry.trace(prep, o_c, d_c)
-                np.testing.assert_array_equal(
-                    np.asarray(dense_c.obj), np.asarray(stream_c.obj),
-                    err_msg=f"camera rays, v4={v4} frustum={frustum}",
-                )
-                # scattered rays with finite search bounds (the shadow-fan
-                # regime, where the t_max-based culls also apply). The dense
-                # path ignores t_max (true nearest); the streamed path may
-                # prune hits beyond it — so within the bound the answers
-                # must agree exactly, beyond it the stream may report a miss
-                stream_s = geometry.trace(prep, o_s, d_s, t_s)
-                dobj = np.asarray(dense_s.obj)
-                sobj = np.asarray(stream_s.obj)
-                within = np.asarray(dense_s.t) < np.asarray(t_s)
-                np.testing.assert_array_equal(
-                    dobj[within], sobj[within],
-                    err_msg=f"scattered within-bound, v4={v4} frustum={frustum}",
-                )
-                # beyond the bound a sphere hit may be pruned: the trace
-                # then reports a miss or falls back to a plane behind it
-                num_p = prep.plane_nrow.shape[0]
-                beyond_ok = (sobj == dobj) | (sobj == -1) | (sobj < num_p)
-                assert beyond_ok[~within].all(), (
-                    f"scattered beyond-bound, v4={v4} frustum={frustum}"
-                )
-    finally:
-        geometry.STREAM_THRESHOLD, st.KERNEL_V4, st.TILE_FRUSTUM = orig[0], orig[1], orig[2]
-        _force_stream(None)
-    assert int((np.asarray(dense_s.obj) >= 0).sum()) > 50
-
-
-def test_stream_cull_det_scaled_t_adversarial():
-    """Deterministic trigger for the det-scaled-t cull bug: a NEAR det=1
-    cluster (one Morton block) and a FAR det=0.008 cluster (another block)
-    on the same rays. The far spheres' reported t = t_world * det ~ 0.24
-    beats the near hit's 9.5, but their block's world-space t_enter ~ 29.5
-    exceeds t_best = 9.5 — a cull without the min-det rescale drops the
-    true (reference-semantics) winner. Verified to diverge without box
-    slot 6; must match dense exactly with it."""
-    from jax.experimental.pallas import tpu as pltpu
-
-    from kajo_tpu.ops.pallas import stream_trace as st
-    from kajo_tpu.scene.types import Camera, make_scene
-    from kajo_tpu.utils import math3d
-
-    ident = math3d.identity()
-    rng = np.random.default_rng(2)
-    jit_yz = rng.uniform(-2.0, 2.0, (128, 2)).astype(np.float32)
-    spheres = []
-    for y, z in jit_yz:  # near cluster: det 1, world radius 0.5
-        spheres.append(
-            {
-                "transform": math3d.translate(ident, [10.0, float(y), float(z)]),
-                "radius": 0.5,
-                "material": {"diffuse": np.array([0.5, 0.5, 0.5, 1], np.float32)},
-            }
-        )
-    for y, z in jit_yz:  # far cluster: uniform scale 0.2 -> det 0.008
-        m = math3d.translate(ident, [30.0, float(y), float(z)]) @ np.diag(
-            [0.2, 0.2, 0.2, 1.0]
-        ).astype(np.float32)
-        spheres.append(
-            {
-                "transform": m,
-                "radius": 2.5,  # world radius 0.5
-                "material": {"diffuse": np.array([0.5, 0.5, 0.5, 1], np.float32)},
-            }
-        )
-    camera = Camera(
-        transform=math3d.look_at([0, 0, -20], [10, 0, 0], [0, -1, 0]),
-        projection=math3d.perspective(55.0, 4.0 / 3.0, 0.1, 100.0),
-    )
-    scene = make_scene(camera, np.array([0, 0, 0, 1], np.float32), [], spheres)
-    prep = geometry.prepare_scene(scene)
-    assert not prep.rigid
-    dets = np.asarray(prep.sphere_det)
-    assert abs(dets.min() - 0.008) < 1e-4 and abs(dets.max() - 1.0) < 1e-5
-
-    # rays through both cluster members: the far (small-det) sphere must win
-    n_r = 16
-    o = jnp.asarray(
-        np.concatenate(
-            [np.zeros((n_r, 1), np.float32), jit_yz[:n_r]], axis=1
-        )
-    )
-    d = jnp.broadcast_to(jnp.asarray([1.0, 0.0, 0.0], jnp.float32), (n_r, 3))
-    t_max = jnp.full((n_r,), 1e30, jnp.float32)
-
-    dense = geometry.trace(prep, o, d)
-    dobj = np.asarray(dense.obj)
-    assert (dobj >= 128).all() and (dobj < 256).all(), "far cluster must win"
-
-    orig = (geometry.STREAM_THRESHOLD, st.KERNEL_V4, st.TILE_FRUSTUM)
-    try:
-        geometry.STREAM_THRESHOLD = 64
-        _force_stream(True)
-        with pltpu.force_tpu_interpret_mode():
-            for v4, frustum in ((True, False), (False, False), (False, True)):
-                st.KERNEL_V4, st.TILE_FRUSTUM = v4, frustum
-                streamed = geometry.trace(prep, o, d)
-                np.testing.assert_array_equal(
-                    dobj, np.asarray(streamed.obj),
-                    err_msg=f"v4={v4} frustum={frustum}",
-                )
-    finally:
-        geometry.STREAM_THRESHOLD, st.KERNEL_V4, st.TILE_FRUSTUM = orig[0], orig[1], orig[2]
-        _force_stream(None)
-
-
-def test_frustum_cull_bitexact_scattered():
-    """The per-tile frustum candidate lists are pure work elision: scattered
-    rays with finite t_max bounds (the shadow-fan regime) give bit-identical
-    results with the cull on and off. Scattered rays are the adversarial
-    case — each tile's origin/direction boxes are wide, so conservativeness
-    bugs would surface here, not on coherent camera rays."""
-    from jax.experimental.pallas import tpu as pltpu
-
-    from kajo_tpu.ops.pallas import stream_trace as st
-
-    scene = random_spheres_scene(900, seed=11, extent=25.0, n_lights=2)
-    prep = geometry.prepare_scene(scene)
-    k = jax.random.PRNGKey(21)
-    n = 2 * st.RAY_ROWS * 128
-    o = jax.random.uniform(k, (n, 3), minval=-30.0, maxval=30.0)
-    d_raw = jax.random.normal(jax.random.fold_in(k, 1), (n, 3))
-    d = d_raw / jnp.linalg.norm(d_raw, axis=-1, keepdims=True)
-    t_max = jnp.where(
-        jax.random.bernoulli(jax.random.fold_in(k, 2), 0.5, (n,)),
-        jax.random.uniform(jax.random.fold_in(k, 3), (n,), minval=1.0, maxval=40.0),
-        jnp.float32(1e30),
-    )
-    # a few dead lanes (d == 0), as the wavefront produces
-    dead = jax.random.bernoulli(jax.random.fold_in(k, 4), 0.05, (n,))
-    d = jnp.where(dead[:, None], 0.0, d)
-
-    orig = (st.TILE_FRUSTUM, st.KERNEL_V4)
-    try:
-        with pltpu.force_tpu_interpret_mode():
-            # force the V1 streaming path: the frustum order is a V1 feature
-            st.KERNEL_V4 = False
-            st.TILE_FRUSTUM = False
-            t0, i0 = jax.jit(lambda o, d: st.nearest_sphere(prep, o, d, t_max))(o, d)
-            st.TILE_FRUSTUM = True
-            t1, i1 = jax.jit(lambda o, d: st.nearest_sphere(prep, o, d, t_max))(o, d)
-    finally:
-        st.TILE_FRUSTUM, st.KERNEL_V4 = orig
-    np.testing.assert_array_equal(np.asarray(i0), np.asarray(i1))
-    np.testing.assert_array_equal(np.asarray(t0), np.asarray(t1))
-    assert int((np.asarray(i0) >= 0).sum()) > 50  # the test actually hits
-
-
-def test_stream_v4_bitexact_v1():
-    """V4 (swapped grid: sphere blocks outer, ray tiles inner, scratch
-    accumulators) is bit-exact vs V1 on scattered rays with finite t_max —
-    V4 is the DEFAULT engine, so this is the main kernel-equivalence gate."""
-    from jax.experimental.pallas import tpu as pltpu
-
-    from kajo_tpu.ops.pallas import stream_trace as st
-
-    scene = random_spheres_scene(900, seed=11, extent=25.0, n_lights=2)
-    prep = geometry.prepare_scene(scene)
-    k = jax.random.PRNGKey(23)
-    n = 2 * st.RAY_ROWS * 128
-    o = jax.random.uniform(k, (n, 3), minval=-30.0, maxval=30.0)
-    d_raw = jax.random.normal(jax.random.fold_in(k, 1), (n, 3))
-    d = d_raw / jnp.linalg.norm(d_raw, axis=-1, keepdims=True)
-    t_max = jnp.where(
-        jax.random.bernoulli(jax.random.fold_in(k, 2), 0.5, (n,)),
-        jax.random.uniform(jax.random.fold_in(k, 3), (n,), minval=1.0, maxval=40.0),
-        jnp.float32(1e30),
-    )
-    dead = jax.random.bernoulli(jax.random.fold_in(k, 4), 0.05, (n,))
-    d = jnp.where(dead[:, None], 0.0, d)
-
-    orig = st.KERNEL_V4
-    try:
-        with pltpu.force_tpu_interpret_mode():
-            st.KERNEL_V4 = False
-            t1, i1 = jax.jit(lambda o, d: st.nearest_sphere(prep, o, d, t_max))(o, d)
-            st.KERNEL_V4 = True
-            t4, i4 = jax.jit(lambda o, d: st.nearest_sphere(prep, o, d, t_max))(o, d)
-    finally:
-        st.KERNEL_V4 = orig
-    np.testing.assert_array_equal(np.asarray(i1), np.asarray(i4))
-    np.testing.assert_array_equal(np.asarray(t1), np.asarray(t4))
-    assert int((np.asarray(i1) >= 0).sum()) > 50
-
-
-def test_stream_v4_ray_tile_size_bitexact():
-    """V4's inner ray-tile size is pure scheduling: 16-row tiles (the
-    round-5 auto default for big streamed scenes, stream_trace.V4_RAY_ROWS
-    None -> 16 above V4_RR_AUTO_BLOCKS outer blocks) must be bit-exact vs
-    32-row tiles. The rr=16 path only auto-triggers at 32k+ spheres — far
-    too big for interpret mode — so this gate forces it on a small scene."""
-    from jax.experimental.pallas import tpu as pltpu
-
-    from kajo_tpu.ops.pallas import stream_trace as st
-
-    scene = random_spheres_scene(900, seed=13, extent=25.0, n_lights=2)
-    prep = geometry.prepare_scene(scene)
-    k = jax.random.PRNGKey(29)
-    n = 2 * st.RAY_ROWS * 128
-    o = jax.random.uniform(k, (n, 3), minval=-30.0, maxval=30.0)
-    d_raw = jax.random.normal(jax.random.fold_in(k, 1), (n, 3))
-    d = d_raw / jnp.linalg.norm(d_raw, axis=-1, keepdims=True)
-    t_max = jnp.where(
-        jax.random.bernoulli(jax.random.fold_in(k, 2), 0.5, (n,)),
-        jax.random.uniform(jax.random.fold_in(k, 3), (n,), minval=1.0, maxval=40.0),
-        jnp.float32(1e30),
-    )
-
-    orig = st.V4_RAY_ROWS
-    try:
-        with pltpu.force_tpu_interpret_mode():
-            st.V4_RAY_ROWS = 32
-            t32, i32 = jax.jit(lambda o, d: st.nearest_sphere(prep, o, d, t_max))(o, d)
-            st.V4_RAY_ROWS = 16
-            t16, i16 = jax.jit(lambda o, d: st.nearest_sphere(prep, o, d, t_max))(o, d)
-            # any-hit occlusion kernel shares the tiling
-            bound = jnp.where(t_max > 1e29, 40.0, t_max)
-            o32 = jax.jit(lambda o, d: st.occluded_sphere(prep, o, d, bound))(o, d)
-            st.V4_RAY_ROWS = 32
-            o32b = jax.jit(lambda o, d: st.occluded_sphere(prep, o, d, bound))(o, d)
-    finally:
-        st.V4_RAY_ROWS = orig
-    np.testing.assert_array_equal(np.asarray(i32), np.asarray(i16))
-    np.testing.assert_array_equal(np.asarray(t32), np.asarray(t16))
-    np.testing.assert_array_equal(np.asarray(o32), np.asarray(o32b))
-    assert int((np.asarray(i32) >= 0).sum()) > 50
-
-
-def test_sort_stream_rays_bitexact():
-    """geometry.SORT_STREAM_RAYS (default OFF since round 5) is a pure
-    permutation around the streaming kernel: trace() with it on must be
-    bit-exact vs off — the un-permute gathers restore caller order."""
-    from jax.experimental.pallas import tpu as pltpu
-
-    scene = random_spheres_scene(1400, seed=17, extent=25.0, n_lights=2)
-    k = jax.random.PRNGKey(31)
-    n = 2048
-    o = jax.random.uniform(k, (n, 3), minval=-30.0, maxval=30.0)
-    d_raw = jax.random.normal(jax.random.fold_in(k, 1), (n, 3))
-    d = d_raw / jnp.linalg.norm(d_raw, axis=-1, keepdims=True)
-
-    orig = (geometry.SORT_STREAM_RAYS, geometry.FORCE_STREAM)
-    try:
-        geometry.FORCE_STREAM = True  # cpu backend: take the streaming path
-        # prepare AFTER forcing: stream packing (and the boxes the sort
-        # needs) is only built when streaming is enabled at prepare time
-        prep = geometry.prepare_scene(scene)
-        assert prep.stream_boxes is not None
-        with pltpu.force_tpu_interpret_mode():
-            geometry.SORT_STREAM_RAYS = False
-            h0 = jax.jit(lambda o, d: geometry.trace(prep, o, d))(o, d)
-            geometry.SORT_STREAM_RAYS = True
-            h1 = jax.jit(lambda o, d: geometry.trace(prep, o, d))(o, d)
-    finally:
-        geometry.SORT_STREAM_RAYS, geometry.FORCE_STREAM = orig
-    np.testing.assert_array_equal(np.asarray(h0.obj), np.asarray(h1.obj))
-    np.testing.assert_array_equal(np.asarray(h0.t), np.asarray(h1.t))
-    np.testing.assert_array_equal(np.asarray(h0.position), np.asarray(h1.position))
-    assert int((np.asarray(h0.obj) >= 0).sum()) > 100
-
-
-def test_stream_v2_v3_bitexact_v1():
-    """The V2 (VMEM pair-matrix) and V3 (resident-scene) kernels are
-    bit-exact vs V1 (SMEM broadcast): same f32 formulas and op order, same
-    strict-< earliest-index ties. Both are default-off (measured slower on
-    TPU than V4 — see stream_trace.py), but their correctness is gated here
-    on rigid AND non-rigid layouts."""
-    from jax.experimental.pallas import tpu as pltpu
-
-    from kajo_tpu.ops.pallas import stream_trace as st
-    from kajo_tpu.utils import math3d
-
-    rigid_scene = random_spheres_scene(700, seed=5, extent=20.0, n_lights=2)
-    bent = random_spheres_scene(300, seed=7, extent=15.0, n_lights=1)
-    stm = np.asarray(bent.sphere_transform).copy()
-    for i in range(0, len(stm), 3):
-        m = math3d.rotate(math3d.identity(), 30.0 + i, [0, 1, 0])
-        m = m @ np.diag([1.4, 0.8, 1.0, 1.0]).astype(np.float32)
-        stm[i] = stm[i] @ m
-    bent = dataclasses.replace(bent, sphere_transform=stm, rigid_spheres=False)
-
-    for scene in (rigid_scene, bent):
-        prep = geometry.prepare_scene(scene)
-        xs, ys = jnp.meshgrid(
-            jnp.linspace(0.02, 0.98, 40), jnp.linspace(0.02, 0.98, 30)
-        )
-        o, d = geometry.generate_rays(prep.camera, xs.ravel(), ys.ravel())
-        t_max = jnp.full(o.shape[0], 1e30, jnp.float32)
-        orig = (st.KERNEL_V2, st.KERNEL_V3, st.KERNEL_V4)
-        try:
-            with pltpu.force_tpu_interpret_mode():
-                st.KERNEL_V2 = st.KERNEL_V3 = st.KERNEL_V4 = False
-                t1, i1 = jax.jit(lambda o, d: st.nearest_sphere(prep, o, d, t_max))(o, d)
-                st.KERNEL_V2 = True
-                t2, i2 = jax.jit(lambda o, d: st.nearest_sphere(prep, o, d, t_max))(o, d)
-                st.KERNEL_V2 = False
-                st.KERNEL_V3 = True
-                t3, i3 = jax.jit(lambda o, d: st.nearest_sphere(prep, o, d, t_max))(o, d)
-        finally:
-            st.KERNEL_V2, st.KERNEL_V3, st.KERNEL_V4 = orig
-        np.testing.assert_array_equal(np.asarray(i1), np.asarray(i2))
-        np.testing.assert_array_equal(np.asarray(t1), np.asarray(t2))
-        np.testing.assert_array_equal(np.asarray(i1), np.asarray(i3))
-        np.testing.assert_array_equal(np.asarray(t1), np.asarray(t3))
-
-
 def test_chunked_nonrigid_matches_dense():
     """The XLA fallback for non-rigid big scenes (no Pallas backend)."""
     scene = random_spheres_scene(300, seed=8, extent=15.0, n_lights=1)
@@ -609,52 +65,40 @@ def test_chunked_nonrigid_matches_dense():
     np.testing.assert_allclose(np.asarray(dense.t), np.asarray(chunked.t), rtol=1e-4)
 
 
-def test_stream_trace_gradients_match_dense():
-    """custom_vjp of the streaming kernel == XLA autodiff of the dense path
-    (gradient of hit distances w.r.t. sphere centers and radii)."""
-    from jax.experimental.pallas import tpu as pltpu
-
+@pytest.mark.parametrize("rigid", [True, False], ids=["rigid", "nonrigid"])
+def test_chunked_trace_gradients_match_dense(rigid, monkeypatch):
+    """Autodiff through the chunked big-scene trace (a scan over sphere
+    blocks with a running nearest hit) == autodiff of the dense path:
+    gradients of hit distances and normals w.r.t. sphere transforms and
+    radii, for the rigid world-space and the general object-space records."""
     scene = random_spheres_scene(200, seed=9, extent=12.0, n_lights=1)
+    if not rigid:
+        st = np.asarray(scene.sphere_transform).copy()
+        st[::2, 0, 0] = 1.3  # non-uniform scale on half the spheres
+        scene = dataclasses.replace(scene, sphere_transform=st, rigid_spheres=False)
     scene = jax.tree.map(jnp.asarray, scene)
     base_prep = geometry.prepare_scene(scene)
     xs, ys = jnp.meshgrid(jnp.linspace(0.1, 0.9, 16), jnp.linspace(0.1, 0.9, 12))
     o, d = geometry.generate_rays(base_prep.camera, xs.ravel(), ys.ravel())
 
-    def loss(st, radius, streamed):
+    def loss(st, radius):
         s = dataclasses.replace(scene, sphere_transform=st, sphere_radius=radius)
-        prep = geometry.prepare_scene(s)
-        if streamed:
-            from kajo_tpu.ops.pallas.stream_trace import nearest_sphere
+        hit = geometry.trace(geometry.prepare_scene(s), o, d)
+        tt = jnp.where(hit.obj >= 0, hit.t, 0.0)
+        # nonlinear in t to exercise the chain rule; normals too
+        return jnp.sum(jnp.sin(tt)) + jnp.sum(hit.normal * d)
 
-            t, idx = nearest_sphere(prep, o, d)
-        else:
-            t_all = geometry._intersect_spheres_rigid(prep, o, d)
-            idx = jnp.argmin(t_all, axis=1).astype(jnp.int32)
-            t = jnp.take_along_axis(t_all, idx[:, None], axis=1)[:, 0]
-            idx = jnp.where(jnp.isfinite(t), idx, -1)
-        tt = jnp.where(idx >= 0, t, 0.0)
-        return jnp.sum(jnp.sin(tt))  # nonlinear to exercise the chain rule
-
-    st = jnp.asarray(scene.sphere_transform)
-    rad = jnp.asarray(scene.sphere_radius)
-    g_dense = jax.grad(loss, argnums=(0, 1))(st, rad, False)
-    orig = geometry.STREAM_THRESHOLD
-    try:
-        geometry.STREAM_THRESHOLD = 64
-        _force_stream(True)
-        with pltpu.force_tpu_interpret_mode():
-            g_stream = jax.grad(loss, argnums=(0, 1))(st, rad, True)
-    finally:
-        geometry.STREAM_THRESHOLD = orig
-        _force_stream(None)
+    grad = jax.grad(loss, argnums=(0, 1))
+    args = (scene.sphere_transform, scene.sphere_radius)
+    g_dense = grad(*args)
+    monkeypatch.setattr(geometry, "BIG_SCENE_THRESHOLD", 64)
+    monkeypatch.setattr(geometry, "BIG_SCENE_CHUNK", 64)
+    g_chunk = grad(*args)
+    assert np.abs(np.asarray(g_dense[1])).sum() > 0
     # near-tangent hits have ill-conditioned dt/dc; identical formulas in a
     # different accumulation order agree to ~0.3% there
-    np.testing.assert_allclose(
-        np.asarray(g_dense[0]), np.asarray(g_stream[0]), rtol=1e-2, atol=1e-4
-    )
-    np.testing.assert_allclose(
-        np.asarray(g_dense[1]), np.asarray(g_stream[1]), rtol=1e-2, atol=1e-4
-    )
+    for a, b in zip(g_dense, g_chunk):
+        np.testing.assert_allclose(np.asarray(a), np.asarray(b), rtol=1e-2, atol=1e-4)
 
 
 def test_procedural_scene_renders():
@@ -687,38 +131,6 @@ def test_chunked_render_runs():
     assert img[..., :3].mean() > 0
 
 
-def test_tiled_pixel_order_is_bijection():
-    from kajo_tpu.models.wavefront import tiled_pixel_order
-
-    for w, h in [(128, 96), (100, 70), (64, 64)]:
-        order = tiled_pixel_order(w, h)
-        assert sorted(order.tolist()) == list(range(w * h))
-
-
-def test_tiled_lane_render_statistically_equal():
-    """Big-scene tiled lane order == default order in distribution (any
-    lane->pixel bijection is a valid estimator; streams differ per pixel)."""
-    import jax
-
-    from kajo_tpu.models.integrator import RenderConfig
-    from kajo_tpu.models.wavefront import render_pass_fast
-
-    scene = random_spheres_scene(300, seed=13, extent=15.0, n_lights=2)
-    cfg = RenderConfig(max_depth=2)
-    orig = geometry.STREAM_THRESHOLD
-    try:
-        # force the tiled path without the Pallas kernel (CPU): lower the
-        # threshold only for the lane-order decision
-        geometry.STREAM_THRESHOLD = 64
-        a = np.asarray(render_pass_fast(scene, jax.random.PRNGKey(3), 48, 32, 16, cfg))
-    finally:
-        geometry.STREAM_THRESHOLD = orig
-    b = np.asarray(render_pass_fast(scene, jax.random.PRNGKey(3), 48, 32, 16, cfg))
-    assert np.isfinite(a).all()
-    rel = abs(a[..., :3].mean() - b[..., :3].mean()) / b[..., :3].mean()
-    assert rel < 0.05, rel
-
-
 def test_one_light_nee_statistically_equal():
     """one_light_nee=True: one uniformly chosen light x L == all-lights NEE
     in expectation (unbiasedness of the light-subset estimator)."""
@@ -742,120 +154,6 @@ def test_one_light_nee_statistically_equal():
     assert np.isfinite(o).all()
     rel = abs(o.mean() - a.mean()) / a.mean()
     assert rel < 0.03, rel
-
-
-def test_occlusion_kernel_matches_oracle():
-    """ANY-HIT occlusion kernel (interpret mode) == dense strict-below oracle
-    for primary-like AND scattered rays with mixed per-ray cuts."""
-    from jax.experimental.pallas import tpu as pltpu
-
-    from kajo_tpu.ops.pallas.stream_trace import occluded_sphere
-
-    scene = random_spheres_scene(700, seed=5, extent=20.0, n_lights=2)
-    prep = geometry.prepare_scene(scene)
-    xs, ys = jnp.meshgrid(jnp.linspace(0.02, 0.98, 40), jnp.linspace(0.02, 0.98, 30))
-    o_pri, d_pri = geometry.generate_rays(prep.camera, xs.ravel(), ys.ravel())
-    k1, k2, k3 = jax.random.split(jax.random.PRNGKey(9), 3)
-    o_sc = jax.random.uniform(k1, o_pri.shape, minval=-18.0, maxval=18.0)
-    d_sc = jax.random.normal(k2, d_pri.shape)
-    d_sc = d_sc / jnp.linalg.norm(d_sc, axis=-1, keepdims=True)
-    o = jnp.concatenate([o_pri, o_sc])
-    d = jnp.concatenate([d_pri, d_sc])
-    # cuts spanning "nothing reachable" (0) to "everything" (60)
-    t_cut = jax.random.uniform(k3, (o.shape[0],), minval=0.0, maxval=60.0)
-
-    ts = geometry._intersect_spheres_rigid(prep, o, d)  # [N, S], INF on miss
-    want = np.asarray(jnp.any(ts < t_cut[:, None], axis=1))
-
-    with pltpu.force_tpu_interpret_mode():
-        got = np.asarray(occluded_sphere(prep, o, d, t_cut))
-    np.testing.assert_array_equal(got, want)
-
-
-def test_v4_super_gating_bitexact():
-    """The V4 second-level superblock cull (SMEM verdict scalar gating whole
-    outer steps) is a pure work-skip: nearest AND any-hit answers are
-    bit-identical with the gate off, including a ragged n_outer % V4_SUPER
-    tail. Real scenes only cross n_outer > 8 above ~4096 spheres, which
-    interpret-mode tests never reach — patch V4_SUPER down so this CI run
-    actually executes the gated kernel."""
-    from jax.experimental.pallas import tpu as pltpu
-
-    from kajo_tpu.ops.pallas import stream_trace as st
-
-    # 2600 spheres -> 128-padded 2688 -> 512-padded 3072 -> n_outer = 6:
-    # V4_SUPER=2 divides evenly (n_super 3), V4_SUPER=4 leaves a ragged
-    # tail (6 % 4 == 2) exercising the union-of-copies padding
-    scene = random_spheres_scene(2600, seed=33, extent=25.0, n_lights=2)
-    prep = geometry.prepare_scene(scene)
-    xs, ys = jnp.meshgrid(jnp.linspace(0.02, 0.98, 32), jnp.linspace(0.02, 0.98, 16))
-    o_pri, d_pri = geometry.generate_rays(prep.camera, xs.ravel(), ys.ravel())
-    k1, k2, k3 = jax.random.split(jax.random.PRNGKey(19), 3)
-    o_sc = jax.random.uniform(k1, o_pri.shape, minval=-22.0, maxval=22.0)
-    d_sc = jax.random.normal(k2, d_pri.shape)
-    d_sc = d_sc / jnp.linalg.norm(d_sc, axis=-1, keepdims=True)
-    o = jnp.concatenate([o_pri, o_sc])
-    d = jnp.concatenate([d_pri, d_sc])
-    t_cut = jax.random.uniform(k3, (o.shape[0],), minval=0.0, maxval=60.0)
-
-    from kajo_tpu.ops.pallas.stream_trace import nearest_sphere, occluded_sphere
-
-    orig = geometry.STREAM_THRESHOLD
-    saved = st.V4_SUPER
-    got = {}
-    try:
-        geometry.STREAM_THRESHOLD = 64
-        _force_stream(True)
-        with pltpu.force_tpu_interpret_mode():
-            for sup in (0, 2, 4):
-                st.V4_SUPER = sup
-                got[sup] = (
-                    np.asarray(nearest_sphere(prep, o, d)[0]),
-                    np.asarray(nearest_sphere(prep, o, d)[1]),
-                    np.asarray(occluded_sphere(prep, o, d, t_cut)),
-                )
-    finally:
-        geometry.STREAM_THRESHOLD = orig
-        st.V4_SUPER = saved
-        _force_stream(None)
-    for sup in (2, 4):
-        for a, b in zip(got[0], got[sup]):
-            np.testing.assert_array_equal(a, b)
-
-
-def test_occl_shadow_render_bitexact_nearest_visibility():
-    """OCCL_SHADOW (any-hit NEE visibility) produces the IDENTICAL image to
-    the nearest-trace visibility on a rigid streamed scene: the analytic
-    light-t decomposition answers the same canReach question, and the shave
-    sliver is geometrically empty for a random scene (deterministic seed:
-    passes once == passes always)."""
-    from jax.experimental.pallas import tpu as pltpu
-
-    from kajo_tpu.models.integrator import RenderConfig
-    from kajo_tpu.models.wavefront import render_pass_fast
-
-    scene = random_spheres_scene(400, seed=21, extent=15.0, n_lights=2)
-    cfg = RenderConfig(max_depth=2)
-    orig = geometry.STREAM_THRESHOLD
-    try:
-        geometry.STREAM_THRESHOLD = 64
-        _force_stream(True)
-        with pltpu.force_tpu_interpret_mode():
-            # module flags are baked at trace time: clear the jit cache so
-            # each flag state really traces its own graph
-            geometry.OCCL_SHADOW = False
-            render_pass_fast.clear_cache()
-            a = np.asarray(render_pass_fast(scene, jax.random.PRNGKey(7), 32, 24, 4, cfg))
-            geometry.OCCL_SHADOW = True
-            render_pass_fast.clear_cache()
-            b = np.asarray(render_pass_fast(scene, jax.random.PRNGKey(7), 32, 24, 4, cfg))
-    finally:
-        geometry.STREAM_THRESHOLD = orig
-        geometry.OCCL_SHADOW = True
-        _force_stream(None)
-        render_pass_fast.clear_cache()
-    assert np.isfinite(b).all()
-    np.testing.assert_array_equal(a, b)
 
 
 def test_render_passes_fast_equals_single_passes():

@@ -7,7 +7,7 @@ import sys
 import numpy as np
 import pytest
 
-REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+from conftest import CAUSTICS, REPO
 
 
 def run_cli(args, timeout=300):
@@ -26,7 +26,7 @@ def run_cli(args, timeout=300):
 def test_render_and_save(tmp_path):
     out = tmp_path / "out.png"
     r = run_cli(["-w", "32", "-h", "24", "--spp", "4", "--passes", "2", "-o", str(out),
-                 "/root/reference/data/spheres.json"])
+                 CAUSTICS])
     assert r.returncode == 0, r.stderr[-2000:]
     assert out.exists()
     from kajo_tpu.utils.image import load_png
@@ -64,14 +64,14 @@ def test_checkpoint_resume(tmp_path):
     ck = tmp_path / "state.npz"
     r1 = run_cli(["-w", "16", "-h", "12", "--spp", "4", "--passes", "2",
                   "-o", str(out), "--checkpoint", str(ck),
-                  "/root/reference/data/spheres.json"])
+                  CAUSTICS])
     assert r1.returncode == 0, r1.stderr[-2000:]
     assert ck.exists()
     data = np.load(ck)
     assert int(data["passes"]) == 2
     r2 = run_cli(["-w", "16", "-h", "12", "--spp", "4", "--passes", "1",
                   "-o", str(out), "--checkpoint", str(ck), "--resume",
-                  "/root/reference/data/spheres.json"])
+                  CAUSTICS])
     assert r2.returncode == 0, r2.stderr[-2000:]
     assert "resumed" in r2.stderr
     assert int(np.load(ck)["passes"]) == 3
@@ -83,12 +83,12 @@ def test_checkpoint_mismatch_refused(tmp_path):
     ck = tmp_path / "state.npz"
     r1 = run_cli(["-w", "16", "-h", "12", "--spp", "4", "--passes", "1",
                   "-o", str(out), "--checkpoint", str(ck),
-                  "/root/reference/data/spheres.json"])
+                  CAUSTICS])
     assert r1.returncode == 0, r1.stderr[-2000:]
     # different seed -> refuse the checkpoint, start fresh
     r2 = run_cli(["-w", "16", "-h", "12", "--spp", "4", "--passes", "1",
                   "--seed", "9", "-o", str(out), "--checkpoint", str(ck), "--resume",
-                  "/root/reference/data/spheres.json"])
+                  CAUSTICS])
     assert r2.returncode == 0, r2.stderr[-2000:]
     assert "does not match" in r2.stderr
     assert "resumed" not in r2.stderr
@@ -111,7 +111,7 @@ def test_shard_objects_flag(tmp_path):
     out = tmp_path / "so.png"
     r = run_cli(["-w", "16", "-h", "12", "--spp", "4", "--passes", "1",
                  "--shard-objects", "-o", str(out),
-                 "/root/reference/data/spheres.json"])
+                 CAUSTICS])
     assert r.returncode == 0, r.stderr[-2000:]
     assert out.exists()
 
@@ -131,7 +131,7 @@ def test_preview_keys_esc_stops_and_saves(tmp_path):
         proc = subprocess.Popen(
             [sys.executable, "-m", "kajo_tpu.cli", "--platform", "cpu",
              "-w", "16", "-h", "12", "--spp", "4", "--passes", "0",
-             "-o", str(out), "/root/reference/data/spheres.json"],
+             "-o", str(out), CAUSTICS],
             stdin=slave,
             stdout=subprocess.DEVNULL,
             stderr=subprocess.PIPE,

@@ -17,8 +17,6 @@ from kajo_tpu.models.integrator import RenderConfig, render_pass
 from kajo_tpu.scene import parser
 from kajo_tpu.utils import math3d
 
-from conftest import REFERENCE_DATA
-
 
 def _two_sphere_scene():
     from kajo_tpu.scene.types import Camera, make_scene

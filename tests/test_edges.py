@@ -307,34 +307,3 @@ def test_inverse_position_recovery_through_silhouette():
     err = abs(float(st[0, 0, 3]))
     assert err < 0.25 * err0, (err0, err)
 
-
-def test_inverse_silhouette_recovery_mega_engine():
-    """engine='mega' + edge_gradients: the boundary term composes with the
-    fused-kernel loss (diff/inverse.py) instead of forcing the jax budget
-    engine — interior grads ride the geometry kernel, the silhouette term
-    adds its boundary VJP on top."""
-    from jax.experimental.pallas import tpu as pltpu
-
-    from kajo_tpu.diff.inverse import InverseRenderer
-
-    target = render_image(
-        _edge_scene(cx=0.0), W, H, 16, jax.random.PRNGKey(7), passes=2, config=CFG
-    )
-    with pltpu.force_tpu_interpret_mode():
-        inv = InverseRenderer(
-            _edge_scene(cx=0.6),
-            target,
-            W,
-            H,
-            spp=8,
-            config=CFG,
-            param_spec=("sphere_transform",),
-            edge_gradients=True,
-            n_edge=512,
-            learning_rate=5e-2,
-            engine="mega",
-        )
-        assert inv.engine == "mega"
-        inv.run(20, jax.random.PRNGKey(9))
-    err = abs(float(inv.params["sphere_transform"][0, 0, 3]))
-    assert err < 0.3, err

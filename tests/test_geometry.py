@@ -8,7 +8,7 @@ from kajo_tpu.scene import parser
 from kajo_tpu.scene.testscene import build_test_scene
 from kajo_tpu.utils import math3d
 
-from conftest import REFERENCE_DATA
+from conftest import CAUSTICS
 
 
 def _scene_from_objects(planes=(), spheres=()):
@@ -97,7 +97,7 @@ def test_rotated_scaled_sphere_det_semantics():
 
 
 def test_spheres_json_primary_rays():
-    scene = parser.load(f"{REFERENCE_DATA}/spheres.json", 4.0 / 3.0)
+    scene = parser.load(CAUSTICS, 4.0 / 3.0)
     prep = geometry.prepare_scene(scene)
     basis = prep.camera
     # center-of-image ray must hit something (the scene encloses the camera)
@@ -112,8 +112,8 @@ def test_spheres_json_primary_rays():
     o, d = geometry.generate_rays(basis, xs.ravel(), ys.ravel())
     hit = geometry.trace(prep, o, d)
     assert bool(jnp.all(hit.obj >= 0))
-    # the light sphere (object id planes+4 = 10) should be visible somewhere
-    assert bool(jnp.any(hit.obj == scene.num_planes + 4))
+    # the light sphere (object id planes+3 = 9) should be visible somewhere
+    assert bool(jnp.any(hit.obj == scene.num_planes + scene.light_indices[0]))
 
 
 def test_camera_basis_matches_reference_goldens():
@@ -133,7 +133,7 @@ def test_rigid_fast_path_matches_general_path():
     import dataclasses
     import jax
 
-    scene = parser.load(f"{REFERENCE_DATA}/spheres.json", 4.0 / 3.0)
+    scene = parser.load(CAUSTICS, 4.0 / 3.0)
     assert scene.rigid_spheres
     general = dataclasses.replace(scene, rigid_spheres=False)
 

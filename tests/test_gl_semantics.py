@@ -32,7 +32,7 @@ from kajo_tpu.ops.geometry import prepare_scene, trace
 from kajo_tpu.ops.rng import uniforms4
 from kajo_tpu.scene import parser
 
-from conftest import REFERENCE_DATA
+from conftest import CAUSTICS
 
 W, H, GRID = 16, 12, 2
 EFF = GRID * GRID
@@ -71,7 +71,6 @@ def _replay_lane(prep, mats, lane, seed, config):
     def camera(sample):
         o, d = _camera_ray(
             prep,
-            jnp.array([lane], jnp.uint32),
             jnp.array([lane], jnp.uint32),
             jnp.array([sample], jnp.int32),
             seed,
@@ -231,7 +230,7 @@ def _replay_lane(prep, mats, lane, seed, config):
 
 
 def test_gl_mode_matches_scalar_replay():
-    scene = parser.load(f"{REFERENCE_DATA}/spheres.json", W / H)
+    scene = parser.load(CAUSTICS, W / H)
     prep = prepare_scene(scene)
     mats = prep.materials
     seed = jnp.uint32(12345)

@@ -17,7 +17,8 @@ import pytest
 
 sys.path.insert(0, os.path.join(os.path.dirname(os.path.dirname(os.path.abspath(__file__))), "tools"))
 
-REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+from conftest import CAUSTICS, REPO
+
 DRIVER = os.path.join(REPO, "tools", "tape_driver")
 
 
@@ -69,19 +70,29 @@ def _gate(ours, theirs, leftover, frac=0.97, tol=1e-3):
     return frac_ok, rel
 
 
-def test_lockstep_diffuse_scene(tape_driver):
-    """test.json: Lambert + one light — the full NEE/MIS/RR math, per path."""
-    ours, theirs, leftover = _run_lockstep(tape_driver, "/root/reference/data/test.json")
+def test_lockstep_diffuse_scene(tape_driver, tmp_path):
+    """Lambert + one light (caustics.json with every non-emissive sphere made
+    diffuse) — the full NEE/MIS/RR math, per path."""
+    import json
+
+    with open(CAUSTICS) as f:
+        scene = json.load(f)
+    for obj in scene["objects"]:
+        if obj["type"] == "sphere" and "emission" not in obj:
+            for k in ("specular", "specularExponent", "transparency", "refractiveIndex"):
+                obj.pop(k, None)
+            obj["diffuse"] = "#b84"
+    path = tmp_path / "diffuse.json"
+    path.write_text(json.dumps(scene))
+    ours, theirs, leftover = _run_lockstep(tape_driver, str(path))
     frac, rel = _gate(ours, theirs, leftover, frac=0.97, tol=1e-3)
     # the typical sample should agree far tighter than the gate
     assert np.median(rel) < 2e-5, np.median(rel)
 
 
 def test_lockstep_spheres_scene(tape_driver):
-    """spheres.json: adds Phong lobes, an ideal mirror and refraction."""
-    ours, theirs, leftover = _run_lockstep(
-        tape_driver, "/root/reference/data/spheres.json", n_pixels=60
-    )
+    """caustics.json: adds Phong lobes, an ideal mirror and refraction."""
+    ours, theirs, leftover = _run_lockstep(tape_driver, CAUSTICS, n_pixels=60)
     frac, rel = _gate(ours, theirs, leftover, frac=0.93, tol=1e-3)
     assert np.median(rel) < 5e-5, np.median(rel)
 

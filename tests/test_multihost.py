@@ -5,7 +5,7 @@ reached by single-process tests or the virtual mesh: `jax.distributed`
 ordering bugs and cross-host image assembly only fail with >= 2 real
 processes. This test launches two subprocesses that join one process group
 via `multihost.initialize("localhost:port", 2, i)` (CPU backend, one device
-each -> a 2-device global mesh spanning processes), render spheres.json
+each -> a 2-device global mesh spanning processes), render caustics.json
 through `render_distributed`, and asserts host 0's assembled image equals
 the single-process render (the sharded engines are bit-identical to
 unsharded by global-lane-id construction, tests/test_parallel.py).
@@ -19,10 +19,10 @@ import sys
 import numpy as np
 import pytest
 
-from conftest import REFERENCE_DATA
+from conftest import CAUSTICS
 
 W, H, SPP = 48, 36, 4
-SCENE = f"{REFERENCE_DATA}/spheres.json"
+SCENE = CAUSTICS
 
 
 def _free_port():

@@ -43,22 +43,19 @@ def test_sharded_fast_bit_matches_unsharded():
 
 def test_sharded_mega_bit_matches_unsharded():
     """The fused megakernel sharded over the mesh is bit-identical to the
-    single-device kernel (interpret mode on the CPU mesh)."""
-    from jax.experimental.pallas import tpu as pltpu
-
-    from kajo_tpu.ops.pallas.megakernel import (
-        render_pass_megakernel,
-        render_pass_megakernel_sharded,
-    )
+    single-device kernel (interpreter on the CPU mesh)."""
+    from kajo_tpu.ops.pallas import megakernel
     from kajo_tpu.scene import parser
 
-    scene = parser.load("/root/reference/data/spheres.json", 1.0)
+    from conftest import CAUSTICS
+
+    scene = parser.load(CAUSTICS, 1.0)
     key = jax.random.PRNGKey(3)
-    with pltpu.force_tpu_interpret_mode():
+    with megakernel.interpret_mode():
         a = np.asarray(
-            render_pass_megakernel_sharded(scene, key, 16, 16, 4, CFG, make_mesh())
+            megakernel.render_pass_megakernel_sharded(scene, key, 16, 16, 4, CFG, make_mesh())
         )
-        b = np.asarray(render_pass_megakernel(scene, key, 16, 16, 4, CFG))
+        b = np.asarray(megakernel.render_pass_megakernel(scene, key, 16, 16, 4, CFG))
     np.testing.assert_allclose(a, b, rtol=1e-5, atol=1e-6)
 
 

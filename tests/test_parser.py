@@ -6,7 +6,7 @@ import pytest
 from kajo_tpu.scene import parser
 from kajo_tpu.scene.testscene import build_test_scene
 
-from conftest import REFERENCE_DATA
+from conftest import CAUSTICS
 
 
 def test_color_hex3():
@@ -40,35 +40,46 @@ def test_trailing_commas_tolerated():
 
 
 def test_spheres_json_structure():
-    scene = parser.load(f"{REFERENCE_DATA}/spheres.json", 640.0 / 480.0)
-    assert scene.num_spheres == 5
+    scene = parser.load(CAUSTICS, 640.0 / 480.0)
+    assert scene.num_spheres == 4
     assert scene.num_planes == 6
-    # one emissive sphere (the light), index 4
-    assert scene.light_indices == (4,)
-    np.testing.assert_allclose(scene.sphere_radius, [1, 1, 1, 1, 0.3], rtol=1e-6)
-    # translate(-2, 0, 0) on the first sphere
-    np.testing.assert_allclose(scene.sphere_transform[0][:3, 3], [-2, 0, 0], atol=1e-6)
-    # emission = rgb(16,16,16)^2.2 on the light's material (planes-first indexing)
-    light_mat = scene.num_planes + 4
+    # one emissive sphere (the light), index 3
+    assert scene.light_indices == (3,)
+    np.testing.assert_allclose(scene.sphere_radius, [1, 0.8, 0.8, 0.25], rtol=1e-6)
+    # translate(0, -0.2, 0) on the first sphere
+    np.testing.assert_allclose(scene.sphere_transform[0][:3, 3], [0, -0.2, 0], atol=1e-6)
+    # emission = rgb(24,24,22)^2.2 on the light's material (planes-first indexing)
+    light_mat = scene.num_planes + 3
     np.testing.assert_allclose(
-        scene.materials.emission[light_mat][:3], 16.0 ** 2.2, rtol=1e-5
+        scene.materials.emission[light_mat][:3], np.array([24.0, 24.0, 22.0]) ** 2.2, rtol=1e-5
     )
     # background black
     np.testing.assert_allclose(scene.background[:3], 0.0)
 
 
 def test_spheres_json_camera_matches_testscene():
-    # spheres.json uses the same camera as the built-in test scene
-    scene = parser.load(f"{REFERENCE_DATA}/spheres.json", 4.0 / 3.0)
+    # the camera DSL builds the same matrices as the built-in scene's math3d
+    # calls (lookat(eye, center, up), perspective(fov, near, far) with the
+    # aspect ratio supplied by the caller)
+    from kajo_tpu.utils import math3d
+
+    scene = parser.load(CAUSTICS, 4.0 / 3.0)
+    np.testing.assert_allclose(
+        scene.camera.transform, math3d.look_at([-5, -2.5, 5], [0, 0, 0], [0, -1, 0]), atol=1e-6
+    )
+    np.testing.assert_allclose(
+        scene.camera.projection, math3d.perspective(45.0, 4.0 / 3.0, 0.1, 100.0), atol=1e-6
+    )
     ts = build_test_scene(4.0 / 3.0)
-    np.testing.assert_allclose(scene.camera.transform, ts.camera.transform, atol=1e-6)
     np.testing.assert_allclose(scene.camera.projection, ts.camera.projection, atol=1e-6)
 
 
 def test_perspective_reads_only_three_numbers():
     # test.json says perspective(45, 1.33, .1, 100): reference reads (45, 1.33, .1)
     # meaning near=1.33, far=.1 — quirky but replicated (Parser.cpp:156-161).
-    scene = parser.load(f"{REFERENCE_DATA}/test.json", 1.0)
+    scene = parser.loads(
+        '{"camera": {"projection": "perspective(45, 1.33, .1, 100)"}, "objects": []}', 1.0
+    )
     from kajo_tpu.utils import math3d
 
     expected = math3d.perspective(45.0, 1.0, 1.33, 0.1)

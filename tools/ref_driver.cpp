@@ -3,7 +3,7 @@
 // The reference's own binary requires SDL/GL for its preview; this driver
 // links only the scene parser and the cpu estimator (Raytracer/Shader/BSDF/
 // Light/Random) so we can (a) dump *linear float* radiance for allclose
-// comparisons against the TPU renderer and (b) measure the reference's
+// comparisons against the JAX renderer and (b) measure the reference's
 // samples/s for BASELINE.md. The pixel loop mirrors cpu/Renderer.cpp:25-81:
 // stratified floor(sqrt(spp))^2 jittered samples, divide by spp (the 25/32
 // quirk), per-slice RNG seed 0715517*(yOffset+1), sy flipped via (H - y).

@@ -1,12 +1,10 @@
 """Scaling-efficiency measurement over an N-device mesh.
 
 BASELINE config 5 asks for rays/s at 1 chip / 1 host / N hosts with >=85%
-scaling efficiency. Only one real TPU chip is reachable this round, so this
-harness measures the *sharded code path* on a virtual CPU mesh (the same
-`parallel/render.py` SPMD program that spans real chips/hosts; forward
-rendering has no cross-device communication, so virtual-mesh efficiency is a
-meaningful proxy for the sharding overhead — the physical ceiling is checked
-the day multi-chip hardware is available).
+scaling efficiency. This harness measures the *sharded code path* on a
+virtual CPU mesh (the same `parallel/render.py` SPMD program that spans real
+devices/hosts; forward rendering has no cross-device communication, so
+virtual-mesh efficiency is a meaningful proxy for the sharding overhead).
 
 CAVEAT: virtual CPU "devices" are threads contending for the same physical
 cores and memory bandwidth, so absolute efficiency here reflects host
